@@ -1,0 +1,80 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use into
+a shared library under ``_build/`` (listed in ``.gitignore``), keyed by a hash of
+its source and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing is compiled when a module is imported: the CPU tests
+import every module on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+
+@dataclass(frozen=True)
+class BuildResult:
+    library: Path
+    log: str  # nvcc's output: -Xptxas -v registers, shared memory and spills
+    seconds: float  # 0.0 when the library was already built
+    cached: bool
+
+
+_LIBS: dict[Path, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; cannot build CUDA kernels")
+
+
+def build(source: Path) -> BuildResult:
+    """Compile ``source`` into a shared library, unless it is already built."""
+    source = Path(source).resolve()
+    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    library = BUILD_DIR / f"{source.stem}-{tag}.so"
+    if library.exists():
+        return BuildResult(library, "", 0.0, cached=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode} on {source}:\n{log}")
+    os.replace(tmp, library)  # atomic: a concurrent process never loads half a file
+    return BuildResult(library, log, seconds, cached=False)
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library built from ``source`` (built first if needed)."""
+    source = Path(source).resolve()
+    if source not in _LIBS:
+        _LIBS[source] = ctypes.CDLL(str(build(source).library))
+    return _LIBS[source]

@@ -1,0 +1,130 @@
+"""MSET2 — Multivariate State Estimation Technique (nonlinear nonparametric
+regression for prognostic surveillance), the paper's pluggable ML workload.
+
+Training (paper Fig. 4 cost driver):
+    D     = memory matrix, (m, n) selected from training data
+    G     = D (x) D  — the nonlinear similarity operator (the CUDA kernel)
+    Ginv  = regularized pseudo-inverse of G (eigendecomposition)
+
+Surveillance (paper Fig. 5 cost driver), streamed over observations x:
+    w     = Ginv · (D (x) x)
+    x_hat = w^T · D
+residuals x - x_hat feed the SPRT detector (sprt.py).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.kernels.similarity import similarity
+from repro_torch.mset.memory_vectors import build_memory_matrix
+
+F32 = torch.float32
+
+
+class MSETModel(nn.Module):
+    """A trained MSET2 model; ``D``, ``Ginv``, ``mean`` and ``std`` are buffers."""
+
+    def __init__(self, D, Ginv, gamma: float, kind: str, mean, std):
+        super().__init__()
+        self.register_buffer("D", D)  # (m, n) memory matrix
+        self.register_buffer("Ginv", Ginv)  # (m, m)
+        self.register_buffer("mean", mean)  # (n,) standardization
+        self.register_buffer("std", std)  # (n,)
+        self.gamma = float(gamma)
+        self.kind = kind
+
+    def forward(self, X):
+        return estimate(self, X)
+
+    @classmethod
+    def from_numpy(cls, D, Ginv, mean, std, gamma: float, kind: str, device=None) -> "MSETModel":
+        """Carry a model across from numpy arrays (e.g. a ``repro`` model's fields)."""
+        dev = resolve_device(device)
+
+        def t(a):
+            return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+        return cls(t(D), t(Ginv), gamma, kind, t(mean), t(std))
+
+    def to_numpy(self) -> dict:
+        """The model's fields as numpy arrays and Python scalars (``from_numpy``'s inverse)."""
+        arrays = {k: getattr(self, k).detach().cpu().numpy() for k in ("D", "Ginv", "mean", "std")}
+        return dict(arrays, gamma=self.gamma, kind=self.kind)
+
+
+def _bandwidth(D) -> torch.Tensor:
+    """Median-distance heuristic for gamma, from a subsample of D."""
+    s = D[: min(256, D.shape[0])]
+    x2 = torch.sum(s * s, dim=1)
+    d2 = torch.clamp(x2[:, None] + x2[None, :] - 2 * s @ s.T, min=0.0)
+    # numpy-style median (mean of the two middle values; torch.median takes the lower).
+    # Like the reference, the diagonal zeros stay in the sample.
+    v = torch.sort(torch.sqrt(d2).flatten()).values
+    k = v.numel()
+    med = (v[(k - 1) // 2] + v[k // 2]) * 0.5
+    return torch.clamp(med, min=1e-3)
+
+
+def regularized_pinv(G, reg: float):
+    """Pseudo-inverse of G + reg*I through its eigendecomposition, dropping evals <= reg."""
+    m = G.shape[0]
+    Gr = G + reg * torch.eye(m, dtype=F32, device=G.device)
+    # symmetrize as jnp.linalg.eigh does by default before decomposing
+    evals, evecs = torch.linalg.eigh((Gr + Gr.T) / 2)
+    inv_evals = torch.where(evals > reg, 1.0 / evals, torch.zeros_like(evals))
+    return (evecs * inv_evals[None, :]) @ evecs.T
+
+
+def _run(name: str, fn: Callable[[], Any]) -> Any:
+    return fn()
+
+
+def train(
+    X,
+    n_memvec: int,
+    *,
+    kind: str = "inverse_distance",
+    gamma: Optional[float] = None,
+    reg: float = 1e-6,
+    step: Callable[[str, Callable[[], Any]], Any] = _run,
+) -> MSETModel:
+    """X: (n_obs, n_signals) raw training telemetry, on the device to train on.
+
+    ``step(name, fn)`` runs each named step as ``fn()``; a caller may pass one that
+    times the steps.
+    """
+    Xf = X.float()
+    mean = torch.mean(Xf, dim=0)
+    std = torch.std(Xf, dim=0, correction=0) + 1e-6
+    Xs = (Xf - mean) / std
+
+    D, _ = step("memory vectors", lambda: build_memory_matrix(Xs, n_memvec))
+    g = float(gamma) if gamma is not None else step("bandwidth", lambda: float(_bandwidth(D)))
+
+    G = step("similarity D x D", lambda: similarity(D, D, gamma=g, kind=kind))  # (m, m)
+    Ginv = step("eigh pseudo-inverse", lambda: regularized_pinv(G, reg))
+    return MSETModel(D=D, Ginv=Ginv, gamma=g, kind=kind, mean=mean, std=std)
+
+
+def estimate(model: MSETModel, X, step: Callable[[str, Callable[[], Any]], Any] = _run):
+    """X: (b, n) observations -> (x_hat (b, n), residuals (b, n)). ``step`` as in ``train``."""
+    Xs = (X.float() - model.mean) / model.std
+    K = step(
+        "similarity D x X",
+        lambda: similarity(model.D, Xs, gamma=model.gamma, kind=model.kind),
+    )
+    W = step("Ginv K", lambda: model.Ginv @ K)  # (m, b)
+    Xhat_s = step("W^T D", lambda: W.T @ model.D)  # (b, n)
+    Xhat = Xhat_s * model.std + model.mean
+    return Xhat, X - Xhat
+
+
+def surveil(model: MSETModel, X_stream):
+    """Convenience: full-stream estimation. X_stream: (T, n)."""
+    return estimate(model, X_stream)
