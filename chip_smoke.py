@@ -5,23 +5,37 @@
 Phases, in order; any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
-2. build: the similarity kernel from ``csrc/similarity.cu`` with nvcc (ptxas report);
-3. kernel against its plain version on the card: tests/test_kernels.py's sweep
-   (float32 and bfloat16, both kinds) and the main path's shapes;
-4. timing with CUDA events at the main path's shapes: kernel, plain version,
+2. build: both kernels, ``kernels/similarity/csrc/similarity.cu`` and
+   ``kernels/attention/csrc/flash.cu``, one nvcc each, started together (ptxas reports);
+3. the similarity kernel against its plain version on the card: tests/test_kernels.py's
+   sweep (float32 and bfloat16, both kinds) and the MSET2 path's shapes;
+4. its timing with CUDA events at those shapes: kernel, plain version,
    ``torch.matmul`` (library yardstick for the product alone) and the bound;
-5. the main path: ContainerStress.run_measured over the "paper" grid and the
+5. the MSET2 path: ContainerStress.run_measured over the "paper" grid and the
    full-width Fig. 8 cell (1024 signals, 8192 memory vectors, 65,536 observations),
    response surface, recommendation over the h100 shapes, SPRT on the full-width
    residuals, the full-width cell split by step, and the launch counts;
-6. one JSON line describing each kernel;
-7. last line: ``{"ok": true, "device": {...}}``.
+6. the flash-attention kernel against its plain version: tests/test_kernels.py's
+   shapes plus ragged S, small head dims and GQA, float32 and bfloat16, causal or not;
+7. flash attention at the serving shape (minitron-4b prefill, B 4, S 2048) and at
+   prefill_32k's sequence (one layer): checked, then timed beside the plain version,
+   ``scaled_dot_product_attention`` (library yardstick) and the bound;
+8. the LM serving path: ``generate("minitron-4b", smoke=False)`` at full width
+   (32 layers, 4.19 B parameters, bf16) with 4 prompts of 2048 tokens and 32 new
+   tokens, warm-up then timed, the kernel's launch count, and one prefill split
+   by step;
+9. correctness of that path: decode after prefill(x[:-1]) equals prefill(x) at full
+   width in float32, and the smoke config's logits and greedy tokens on the card
+   equal those on the CPU;
+10. one JSON line describing each kernel;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
 
 import importlib
 import json
+from concurrent.futures import ThreadPoolExecutor
 import os
 import subprocess
 import sys
@@ -33,9 +47,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 bandwidth.
-# The kernel computes in IEEE float32 FMA, so its bound is the float32 rate.
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, bf16 dense tensor
+# cores, HBM3 bandwidth. The similarity kernel's inputs are float32, so its bound is
+# the float32 rate; flash attention's are bf16 on the serving path, so its bound is
+# the bf16 rate (the kernel itself computes in float32 FMA).
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 SWEEP = [(64, 32, 16), (256, 256, 256), (130, 70, 33), (8, 8, 4), (512, 128, 1024)]
@@ -46,6 +63,26 @@ KINDS = ("inverse_distance", "gaussian")
 TRAIN_SHAPE = (8192, 8192, 1024)  # G = sim(D, D): m x m over n signals
 SURVEIL_SHAPE = (8192, 65536, 1024)  # K = sim(D, X): m x b over n signals
 SMALL_SEED = 0  # small agreement input; its 32 memory vectors are all distinct
+# flash attention (B, S, H, K, hd): tests/test_kernels.py's shapes, ragged S, small
+# head dims, GQA (minitron-4b's 24/8 and granite-20b's 48/1)
+FLASH_SWEEP = [
+    (2, 128, 2, 2, 64),
+    (1, 256, 4, 4, 32),
+    (2, 200, 2, 2, 64),
+    (1, 64, 1, 1, 128),
+    (1, 16, 2, 2, 16),
+    (1, 17, 2, 2, 32),
+    (2, 100, 2, 2, 64),
+    (1, 160, 2, 2, 16),
+    (1, 100, 8, 2, 32),
+    (1, 160, 24, 8, 128),
+    (1, 100, 48, 1, 128),
+]
+SERVE_SHAPE = (4, 2048, 24, 8, 128)  # minitron-4b prefill of 4 x 2048 tokens
+LONG_SHAPE = (1, 32768, 24, 8, 128)  # prefill_32k's sequence (configs/base.py), one layer
+LONG_TAIL = 1024  # query rows of the long shape checked against the plain version
+SERVE_ARCH = "minitron-4b"
+SERVE = dict(batch=4, prompt_len=2048, gen_tokens=32)
 
 
 class SmokeFailure(RuntimeError):
@@ -95,6 +132,59 @@ def bound(m, b, n, elem_bytes=4):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def step_timer():
+    """(split, step): ``step(name, fn)`` runs fn between two synchronizes and adds its
+    host-clock seconds to ``split[name]``; the models' ``step`` hooks take it."""
+    split = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    return split, step
+
+
+def attention_bound(B, S, H, K, hd):
+    """Least time for causal bf16 attention: 4·B·H·hd·S(S+1)/2 operations at the bf16
+    tensor core rate, or q, k, v read once and o written once (2 bytes an element),
+    whichever is longer."""
+    t_ops = 4.0 * B * H * hd * S * (S + 1) / 2 / BF16_FLOPS
+    t_bytes = 2.0 * B * S * hd * (2 * H + 2 * K) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_bar(ref, dtype):
+    """float32: tests/test_kernels.py's 2e-5. bfloat16: kernel and plain version get the
+    same bf16 inputs and both compute in float32, so they may differ by one bf16 ulp of
+    the output (2^-7 relative), plus 1e-5 for outputs near 0."""
+    if dtype == torch.float32:
+        return 2e-5 + 2e-5 * ref.abs()
+    return 1e-5 + 2.0**-7 * ref.abs()
+
+
+def check_flash(out, ref, dtype):
+    diff = (out.float() - ref.float()).abs()
+    return float(diff.max()), bool((diff <= flash_bar(ref.float(), dtype)).all())
+
+
+def attention_inputs(shape, dtype, g, dev, heads_major=False):
+    """q (B, S, H, hd), k and v (B, S, K, hd); with ``heads_major`` each is a view of
+    a (B, heads, S, hd) tensor, which the kernel reads through its strides."""
+    B, S, H, K, hd = shape
+    out = []
+    for n in (H, K, K):
+        if heads_major:
+            t = torch.randn(B, n, S, hd, generator=g, device=dev).transpose(1, 2)
+        else:
+            t = torch.randn(B, S, n, hd, generator=g, device=dev)
+        out.append(t.to(dtype))
+    return out
+
+
 def numpy_telemetry(seed, p):
     """TPSS telemetry from numpy draws: the same numbers on every machine and torch version."""
     from repro_torch.tpss import TPSSDraws, synthesize_from_draws
@@ -115,6 +205,162 @@ def numpy_telemetry(seed, p):
         std=t(rng.standard_normal(ns)),
     )
     return synthesize_from_draws(draws, p)
+
+
+def flash_kernel_phases(dev, card):
+    """Phases 6 and 7: flash attention against its plain version, then timed at the
+    serving shape and at prefill_32k's sequence. Returns the timings by shape."""
+    from repro_torch.kernels import gqa_attention, mha_ref
+
+    print("== 6. flash attention against its plain version on the card")
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [(shape, False) for shape in FLASH_SWEEP] + [((2, 200, 8, 2, 64), True)]
+    for shape, heads_major in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attention_inputs(shape, dtype, g, dev, heads_major)
+            for causal in (True, False):
+                out = gqa_attention(q, k, v, causal=causal, impl="cuda")
+                ref = gqa_attention(q, k, v, causal=causal, impl="ref")
+                err, ok = check_flash(out, ref, dtype)
+                print(
+                    f"  sweep B,S,H,K,hd={shape}{' heads-major' if heads_major else ''} "
+                    f"{str(dtype)[6:]:8s} causal={causal!s:5s} max_abs_err {err:.3e}"
+                )
+                expect(ok, f"flash kernel disagrees at {shape} {dtype} causal={causal}: {err}")
+    torch.cuda.synchronize()
+
+    print(f"== 7. flash attention at the serving and long shapes (CUDA events; {card})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {}
+    for label, shape in (("serve", SERVE_SHAPE), ("prefill_32k", LONG_SHAPE)):
+        B, S, H, K, hd = shape
+        q, k, v = attention_inputs(shape, torch.bfloat16, g, dev)
+        out = gqa_attention(q, k, v, impl="cuda")
+        if label == "serve":
+            ref = gqa_attention(q, k, v, impl="ref")
+            rows = f"all {S} rows"
+        else:
+            # the last rows attend to every key; the plain version of the whole
+            # sequence is timed below, but held here on its tail alone
+            kx, vx = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+            ref = mha_ref(q[:, -LONG_TAIL:], kx, vx, q_offset=S - LONG_TAIL)
+            out = out[:, -LONG_TAIL:]
+            rows = f"the last {LONG_TAIL} rows"
+            del kx, vx
+        err, ok = check_flash(out, ref, torch.bfloat16)
+        print(f"  {label} B,S,H,K,hd={shape} bf16 causal, {rows}: max_abs_err {err:.3e}")
+        expect(ok, f"flash kernel disagrees at the {label} shape: {err}")
+        del out, ref
+        iters = 10 if label == "serve" else 3
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = dict(
+            ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="cuda"), iters),
+            plain_ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="ref"), max(iters // 3, 1), 1),
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters),
+            max_abs_err=err,
+        )
+        t["bound_ms"], t["bound_by"] = attention_bound(*shape)
+        t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, bfloat16, causal"
+        timings[label] = t
+        print(
+            f"  {label}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+            f"kernel at {t['bound_ms'] / t['ms']:.2%} of bound, "
+            f"{t['ms'] / t['library_ms']:.1f}x SDPA's time"
+        )
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return timings
+
+
+def serving_phases(dev, card, flash_module):
+    """Phases 8 and 9: the LM serving path at full width, its launch count and split,
+    and its correctness checks. Returns the kernel's launch count."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import decode_greedy, generate
+    from repro_torch.models import Model, build_model
+
+    cfg = get_config(SERVE_ARCH)
+    print(f"== 8. serving {cfg.name} at full width on {card}")
+    print(
+        f"  {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"head_dim {cfg.head_dim}, {cfg.mlp_type} MLP {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, {cfg.param_counts()['total']:,.0f} parameters; {SERVE}"
+    )
+    torch.cuda.reset_peak_memory_stats()
+    flash_module.launches = 0
+    runs = [generate(SERVE_ARCH, smoke=False, device=dev, **SERVE) for _ in range(2)]
+    launches = flash_module.launches
+    peak = torch.cuda.max_memory_allocated()
+    for label, r in zip(("warm-up", "timed"), runs):
+        print(
+            f"  {label}: prefill {r.prefill_s:.4f} s, decode {r.decode_s:.4f} s "
+            f"({SERVE['gen_tokens'] - 1} steps), {r.tokens_per_s:.1f} tokens/s "
+            f"({r.tokens_per_s / SERVE['batch']:.1f} per sequence)"
+        )
+    print(f"  peak device memory {peak / 2**30:.2f} GiB")
+    print(f"  flash kernel launches: {launches} over {len(runs)} generate calls")
+    expect(launches > 0, "the serving path never launched the flash kernel")
+    expect(launches == cfg.n_layers * len(runs), f"expected {cfg.n_layers} launches a call")
+    toks = runs[1].tokens
+    expect(toks.shape == (SERVE["batch"], SERVE["gen_tokens"]), f"tokens {toks.shape}")
+    expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
+    same = bool((runs[0].tokens == toks).all())
+    print(f"  the two calls gave the same tokens: {same}; first sequence {toks[0][:12]}")
+
+    # One prefill split by step, each step ended by a synchronize.
+    split, step = step_timer()
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev, g)
+    shape = (SERVE["batch"], SERVE["prompt_len"])
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
+    model.prefill(prompts)  # warm-up
+    _, logits = model.prefill(prompts, step=step)
+    expect(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+    total = sum(split.values())
+    print(f"  one prefill split by step ({total:.4f} s in all; {card}):")
+    for name, sec in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:18s} {sec:9.4f} s  {sec / total:6.1%}")
+    del model, logits, prompts
+    torch.cuda.empty_cache()
+
+    print("== 9. serving correctness")
+    # decode(prefill(x[:-1]), x[-1]) == prefill(x) at the last token, at full width in
+    # float32 (tests/test_models_smoke.py's bar): the flash kernel's prefill attention
+    # against the plain decode attention, through all the layers.
+    cfg32 = cfg.replace(dtype="float32")
+    model = build_model(cfg32, dev, torch.Generator(device=dev).manual_seed(1))
+    x = torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=dev)
+    _, full = model.prefill(x)
+    cache, _ = model.prefill(x[:, :-1], model.init_cache(2, 256))
+    _, dec = model.decode_step(cache, x[:, -1:], 255)
+    err = float((dec - full).abs().max())
+    ok = bool(((dec - full).abs() <= 2e-4 + 2e-3 * full.abs()).all())
+    print(
+        f"  full width float32, B 2, S 256: decode vs prefill max_abs_err {err:.3e} "
+        f"(bar 2e-4 + 2e-3|x|; max |logit| {float(full.abs().max()):.3f})"
+    )
+    expect(ok, f"decode disagrees with prefill at full width: {err}")
+    del model, cache, full, dec
+    torch.cuda.empty_cache()
+
+    # The smoke config in float32, the same weights and prompts on the card (flash
+    # kernel) and on the CPU (plain version).
+    small = get_config(SERVE_ARCH, smoke=True).replace(dtype="float32")
+    cpu = build_model(small, "cpu", torch.Generator().manual_seed(0))
+    on_card = Model.from_numpy(small, cpu.to_numpy(), dev)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, small.vocab_size, (4, 96)))
+    outs = []
+    for m, d in ((cpu, "cpu"), (on_card, dev)):
+        cache, logits = m.prefill(prompts.to(d), m.init_cache(4, 104))
+        outs.append((logits.float().cpu(), decode_greedy(m, cache, logits, 96, 8).cpu()))
+    (l_cpu, t_cpu), (l_card, t_card) = outs
+    err, bar = float((l_card - l_cpu).abs().max()), 1e-4 * float(l_cpu.abs().max())
+    print(f"  smoke float32, card vs CPU prefill logits: max_abs_err {err:.3e} (bar {bar:.3e})")
+    print(f"  greedy tokens over 8 steps equal: {bool(torch.equal(t_card, t_cpu))}")
+    expect(err <= bar, "prefill logits on the card disagree with the CPU")
+    expect(torch.equal(t_card, t_cpu), "greedy tokens on the card differ from the CPU")
+    return launches
 
 
 def main():
@@ -150,9 +396,14 @@ def main():
 
     # --------------------------------------------------------------- 2. build
     print("== 2. build")
-    built = _build.build(sim_module.SOURCE)
-    print(f"similarity: {built.library.name}, nvcc {built.seconds:.2f} s (cached={built.cached})")
-    print(built.log.strip())
+    flash_module = importlib.import_module("repro_torch.kernels.attention.flash")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc for each source, started together
+        builds = list(pool.map(_build.build, (sim_module.SOURCE, flash_module.SOURCE)))
+    print(f"both kernels built in {time.perf_counter() - t0:.2f} s of wall time")
+    for name, built in zip(("similarity", "flash attention"), builds):
+        print(f"{name}: {built.library.name}, nvcc {built.seconds:.2f} s (cached={built.cached})")
+        print(built.log.strip())
 
     # ------------------------------------------------- 3. kernel vs plain version
     print("== 3. kernel against its plain version on the card")
@@ -219,7 +470,7 @@ def main():
     del D, X
 
     # ----------------------------------------------------------- 5. main path
-    print(f"== 5. main path on {card}")
+    print(f"== 5. the MSET2 path on {card}")
     sim_module.launches = 0
     res, surf = run_mset("paper", reps=2, device=dev, verbose=False)
     torch.cuda.reset_peak_memory_stats()
@@ -290,16 +541,7 @@ def main():
 
     # Full-width cell split by step: the same cell's telemetry through MSET2's own
     # train and estimate, each step timed and ended by a synchronize.
-    split = {}
-
-    def step(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        split[name] = split.get(name, 0.0) + time.perf_counter() - t0
-        return out
-
+    split, step = step_timer()
     p = FULL_WIDTH_CELL
     n_tr, n_surv = surveillance_split(p)
     tpss = TPSSParams(n_signals=p["n_signals"], n_obs=n_tr + n_surv)
@@ -329,7 +571,11 @@ def main():
     print(f"  small input, card vs CPU residuals: max_abs_err {small_err:.3e}, bar {small_tol:.3e}")
     expect(small_err <= small_tol, "MSET2 on the card disagrees with the CPU on a small input")
 
-    # ------------------------------------------------------------ 6. kernels
+    # ------------------------------------------- 6-9. flash attention and serving
+    flash_timings = flash_kernel_phases(dev, card)
+    flash_launches = serving_phases(dev, card, flash_module)
+
+    # ----------------------------------------------------------- 10. kernels
     t = timings["surveil"]
     train_shape = "x = y {0}x{2}, float32 (G = sim(D, D))".format(*TRAIN_SHAPE)
     kernels = [
@@ -347,7 +593,17 @@ def main():
             "library_ms": t["library_ms"],
             "shape": "x {0}x{2}, y {1}x{2}, float32 (K = sim(D, X))".format(*SURVEIL_SHAPE),
             "train_shape": dict(timings["train"], shape=train_shape),
-        }
+        },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/attention/csrc/flash.cu",
+            "replaces": "src/repro/kernels/attention/flash.py:63",
+            "launches": flash_launches,
+            **flash_timings["serve"],
+            "max_abs_err": max(t["max_abs_err"] for t in flash_timings.values()),
+            "prefill_32k": flash_timings["prefill_32k"],
+        },
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -24,6 +24,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def sync() -> None:
+    """Wait for the work queued on the card, so that a clock read after it counts
+    that work. CPU tensors compute synchronously."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def f32_matmul_highest() -> None:
     """Keep float32 products in full IEEE float32 (no TF32) on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False

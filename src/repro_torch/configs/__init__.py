@@ -1,4 +1,10 @@
-# Only the MSET2 use case so far; the LM architecture registry comes with the LM side.
+from repro_torch.configs.base import (
+    SHAPES,
+    ArchConfig,
+    ShapeSpec,
+    model_flops,
+    shape_applicable,
+)
 from repro_torch.configs.mset_paper import (
     CUSTOMER_A,
     CUSTOMER_B,
@@ -7,8 +13,17 @@ from repro_torch.configs.mset_paper import (
     TRAINING_GRID,
     MSETUseCase,
 )
+from repro_torch.configs.registry import ARCH_IDS, all_cells, get_config
 
 __all__ = [
+    "ArchConfig",
+    "SHAPES",
+    "ShapeSpec",
+    "model_flops",
+    "shape_applicable",
+    "ARCH_IDS",
+    "all_cells",
+    "get_config",
     "MSETUseCase",
     "TRAINING_GRID",
     "SURVEILLANCE_GRID_64",

@@ -20,6 +20,7 @@ from typing import Any, Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch._device import sync
 from repro_torch.core.cost_model import H100, HardwareSpec, RooflineTerms
 
 
@@ -76,13 +77,6 @@ def _grid(grid: dict[str, Iterable]) -> list[dict]:
     return [dict(zip(names, vals)) for vals in itertools.product(*grid.values())]
 
 
-def _sync() -> None:
-    # Work on the card is queued; the clock stops only when it has finished.
-    # CPU tensors compute synchronously.
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
 class ContainerStress:
     """workload_fn(params: dict) must return a zero-arg callable that executes one
     unit of work (inputs baked in / regenerated via MC draws) on the device the
@@ -113,7 +107,7 @@ class ContainerStress:
             try:
                 run = workload_fn(params)
                 run()  # warm-up
-                _sync()
+                sync()
             except torch.cuda.OutOfMemoryError as e:
                 if verbose:
                     print(f"[containerstress] skip {params}: out of device memory ({e})")
@@ -122,7 +116,7 @@ class ContainerStress:
             for _ in range(reps):
                 t0 = time.perf_counter()
                 run()
-                _sync()
+                sync()
                 ts.append(time.perf_counter() - t0)
             r = CellResult(
                 params=params, mean_s=float(np.mean(ts)), std_s=float(np.std(ts)), reps=reps

@@ -1,5 +1,14 @@
-# The MSET2 similarity operator is the paper's named CUDA kernel (Fig. 3); here it is
-# a hand-written CUDA kernel for Hopper. Flash attention (the LM side) is not ported yet.
+# The two places where the JAX package drops to a Pallas TPU kernel, each a
+# hand-written CUDA kernel for Hopper here: the MSET2 similarity operator (the
+# paper's named CUDA kernel, Fig. 3) and flash attention (the LM serving path).
+from repro_torch.kernels.attention import flash_attention_cuda, gqa_attention, mha_ref
 from repro_torch.kernels.similarity import similarity, similarity_cuda, similarity_ref
 
-__all__ = ["similarity", "similarity_cuda", "similarity_ref"]
+__all__ = [
+    "flash_attention_cuda",
+    "gqa_attention",
+    "mha_ref",
+    "similarity",
+    "similarity_cuda",
+    "similarity_ref",
+]

@@ -1,0 +1,274 @@
+"""Model building blocks: norms, RoPE, GQA attention (prefill and decode), MLP
+variants, embeddings. Counterpart of the JAX package's ``models/layers.py``.
+
+Parameters keep the reference's names and layouts, (d, H, hd) for ``wq``,
+(d, K, hd) for ``wk``/``wv`` and (H, hd, d) for ``wo``, so that a reference
+parameter tree moves across as it is (``Model.from_numpy``). The reference keeps
+every parameter in float32 and casts matmul weights and embedding rows to the
+working dtype at use; the port stores those in the working dtype, which gives the
+same values, and keeps norm scales and biases in float32.
+
+Every ``step`` argument is a hook ``step(name, fn) -> fn()`` through which a caller
+can time the sublayers; the default just calls ``fn``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.attention.ops import gqa_attention
+
+F32 = torch.float32
+
+
+def _run(name, fn):
+    return fn()
+
+
+def working_dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init_(p: torch.Tensor, generator, in_axis: int = 0):
+    """The reference's ``dense_init`` (every caller there has scale 1): normal /
+    sqrt(fan_in), fan_in the product of the dims up to ``in_axis``, drawn in float32
+    and then stored."""
+    fan_in = math.prod(p.shape[: in_axis + 1])
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(p.shape, generator=generator, dtype=F32, device=p.device)
+    with torch.no_grad():
+        p.copy_(w.mul_(std))  # in place: one float32 temporary (3.1 GB for minitron's table)
+
+
+def _param(shape, dtype, device):
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+class Norm(nn.Module):
+    """``init_norm``/``apply_norm``: LayerNorm (population variance) or RMSNorm,
+    computed in float32 and cast back to the input's dtype."""
+
+    def __init__(self, cfg: ArchConfig, dim: int, device):
+        super().__init__()
+        self.kind = cfg.norm
+        self.scale = _param((dim,), F32, device)
+        self.bias = _param((dim,), F32, device) if cfg.norm == "layernorm" else None
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        eps = 1e-5
+        xf = x.float()
+        if self.kind == "layernorm":
+            mu = xf.mean(-1, keepdim=True)
+            var = xf.var(-1, keepdim=True, correction=0)
+            y = (xf - mu) * torch.rsqrt(var + eps) * self.scale + self.bias
+        else:
+            ms = xf.square().mean(-1, keepdim=True)
+            y = xf * torch.rsqrt(ms + eps) * self.scale
+        return y.to(x.dtype)
+
+
+def rms_norm_nohead(x, scale):
+    """RMS norm over the last dim, eps 1e-6 (qk-norm)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (partial rotary: chatglm3's "RoPE 2d" is fraction 0.5)
+# ---------------------------------------------------------------------------
+
+
+def apply_rope(x, positions, theta: float, fraction: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Rotate-half over the
+    first ``rot`` dims, the rest passed through; cos and sin in float32."""
+    hd = x.shape[-1]
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = torch.exp(
+        -torch.arange(0, half, dtype=F32, device=x.device) * (math.log(theta) / half)
+    )
+    ang = positions[..., None].to(F32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x_rot[..., :half].float(), x_rot[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """GQA self-attention in modes ``causal`` (prefill) and ``decode``. The
+    reference's ``bidir``, ``cross`` and ``cross_decode`` wait for the enc-dec family."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = working_dtype(cfg)
+        self.wq = _param((d, H, hd), dt, device)
+        self.wk = _param((d, K, hd), dt, device)
+        self.wv = _param((d, K, hd), dt, device)
+        self.wo = _param((H, hd, d), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((hd,), F32, device)
+            self.k_norm = _param((hd,), F32, device)
+
+    def reset_parameters(self, generator):
+        dense_init_(self.wq, generator)
+        dense_init_(self.wk, generator)
+        dense_init_(self.wv, generator)
+        dense_init_(self.wo, generator, in_axis=1)
+        if self.cfg.qk_norm:
+            with torch.no_grad():
+                self.q_norm.fill_(1.0)
+                self.k_norm.fill_(1.0)
+
+    def _qkv(self, x, positions):
+        cfg = self.cfg
+        B, S, d = x.shape
+        q = (x @ self.wq.view(d, -1)).view(B, S, cfg.n_heads, cfg.head_dim)
+        k = (x @ self.wk.view(d, -1)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = (x @ self.wv.view(d, -1)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rms_norm_nohead(q, self.q_norm)
+            k = rms_norm_nohead(k, self.k_norm)
+        if cfg.pos_emb == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        return q, k, v
+
+    def _out(self, o):
+        B, S = o.shape[:2]
+        return o.reshape(B, S, -1) @ self.wo.view(-1, self.cfg.d_model)
+
+    def forward(self, x, *, mode: str, positions=None, cache=None, pos=None, step=_run):
+        """causal: x (B, S, d); writes k and v into ``cache`` = {"k", "v"} of shape
+        (B, K, Smax, hd) at [:, :, :S]. decode: x (B, 1, d) at absolute position
+        ``pos``; writes k and v at ``pos`` and attends over the first pos + 1 entries.
+        Returns (out, cache). The cache is updated in place, where the reference
+        returns new arrays (``dynamic_update_slice``, ``pad_cache``)."""
+        if mode == "causal":
+            q, k, v = step("qkv + rope", lambda: self._qkv(x, positions))
+            out = step("attention kernel", lambda: gqa_attention(q, k, v, causal=True))
+            S = x.shape[1]
+            # prefill cache layout (B, K, S, hd): seq next to head_dim, as the reference's
+            cache["k"][:, :, :S].copy_(k.transpose(1, 2))
+            cache["v"][:, :, :S].copy_(v.transpose(1, 2))
+            return step("out projection", lambda: self._out(out)), cache
+        if mode == "decode":
+            positions = torch.full((1, 1), pos, device=x.device)
+            q, k, v = self._qkv(x, positions)
+            cache["k"][:, :, pos].copy_(k[:, 0])
+            cache["v"][:, :, pos].copy_(v[:, 0])
+            out = _decode_sdpa(q, cache["k"][:, :, : pos + 1], cache["v"][:, :, : pos + 1])
+            return self._out(out), cache
+        raise ValueError(f"attention mode {mode!r} is not ported; causal and decode are")
+
+
+def _decode_sdpa(q, k, v):
+    """The reference's ``_sdpa(..., layout="seq")``, the decode attention, in plain
+    torch as the reference computes it outside any Pallas kernel: scores in the
+    working dtype then float32, float32 softmax, weights cast back before P·V.
+    q: (B, Sq, H, hd); k/v: (B, K, L, hd) hold the L valid cache entries. The
+    reference masks the entries past L with -1e30, which add exactly 0."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[1]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    s = torch.einsum("bqkgh,bksh->bkgqs", qg, k).float() * (1.0 / math.sqrt(hd))
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bksh->bqkgh", w, v)
+    return o.reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """``init_mlp``/``apply_mlp``: swiglu, relu² or gelu (the tanh form, which is
+    ``jax.nn.gelu``'s default)."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        self.mlp_type = cfg.mlp_type
+        d, ff, dt = cfg.d_model, cfg.d_ff, working_dtype(cfg)
+        self.w_up = _param((d, ff), dt, device)
+        self.w_down = _param((ff, d), dt, device)
+        if cfg.mlp_type == "swiglu":
+            self.w_gate = _param((d, ff), dt, device)
+
+    def reset_parameters(self, generator):
+        dense_init_(self.w_up, generator)
+        dense_init_(self.w_down, generator)
+        if self.mlp_type == "swiglu":
+            dense_init_(self.w_gate, generator)
+
+    def forward(self, x):
+        h = x @ self.w_up
+        if self.mlp_type == "swiglu":
+            h = F.silu(x @ self.w_gate) * h
+        elif self.mlp_type == "relu2":
+            h = F.relu(h).square()
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return h @ self.w_down
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+class Embed(nn.Module):
+    """``init_embed``/``embed_tokens``/``unembed``: token rows, and an output head
+    (the transposed token table when embeddings are tied)."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        self.tie = cfg.tie_embeddings
+        dt = working_dtype(cfg)
+        self.tok = _param((cfg.vocab_size, cfg.d_model), dt, device)
+        if not cfg.tie_embeddings:
+            self.unembed = _param((cfg.d_model, cfg.vocab_size), dt, device)
+
+    def reset_parameters(self, generator):
+        dense_init_(self.tok, generator)
+        if not self.tie:
+            dense_init_(self.unembed, generator)
+
+    def embed_tokens(self, tokens):
+        return self.tok[tokens]
+
+    def logits(self, x):
+        return x @ (self.tok.T if self.tie else self.unembed)

@@ -70,3 +70,74 @@ def test_synthesis_on_the_card(cuda):
     a, b = synthesize(5, p, device=cuda), synthesize(5, p, device=cuda)
     assert a.is_cuda and a.shape == (1024, 16)
     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+# ------------------------------ LM serving (flash attention, K2) ------------
+
+flash_module = importlib.import_module("repro_torch.kernels.attention.flash")
+
+# (B, S, H, K, hd): tests/test_kernels.py's shapes, ragged S, small head dims and GQA
+FLASH_SWEEP = [
+    (2, 128, 2, 2, 64),
+    (1, 256, 4, 4, 32),
+    (2, 200, 2, 2, 64),
+    (1, 64, 1, 1, 128),
+    (1, 17, 2, 2, 16),
+    (1, 100, 8, 2, 64),
+    (1, 160, 24, 8, 128),
+    (1, 100, 48, 1, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, B, S, H, K, hd, dtype):
+    from repro_torch.kernels import gqa_attention
+
+    g = torch.Generator(device=cuda).manual_seed(S * H + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    # k and v laid out (B, K, S, hd), as in the KV cache, and read through their strides
+    k = torch.randn(B, K, S, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn(B, K, S, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    for causal in (True, False):
+        before = flash_module.launches
+        out = gqa_attention(q, k, v, causal=causal)
+        assert flash_module.launches == before + 1
+        ref = gqa_attention(q, k, v, causal=causal, impl="ref").float()
+        diff = (out.float() - ref).abs()
+        # float32: tests/test_kernels.py's 2e-5. bfloat16: both sides get the same bf16
+        # inputs and compute in float32, so they may differ by one bf16 ulp of the output.
+        if dtype == torch.float32:
+            bar = 2e-5 + 2e-5 * ref.abs()
+        else:
+            bar = 1e-5 + 2**-7 * ref.abs()
+        assert bool((diff <= bar).all()), float(diff.max())
+
+
+def test_serve_path_launches_flash_kernel_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+
+    flash_module.launches = 0
+    r = generate("minitron-4b", batch=2, prompt_len=40, gen_tokens=4, device=cuda)
+    assert r.tokens.shape == (2, 4)
+    # one prefill, one kernel launch per attention layer; decode attention is plain torch
+    assert flash_module.launches == get_config("minitron-4b", smoke=True).n_layers
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import decode_greedy
+    from repro_torch.models import Model, build_model
+
+    cfg = get_config("minitron-4b", smoke=True).replace(dtype="float32")
+    cpu = build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    card = Model.from_numpy(cfg, cpu.to_numpy(), cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 48)))
+    outs = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        cache, logits = model.prefill(toks.to(dev), model.init_cache(2, 56))
+        outs.append((logits.float().cpu(), decode_greedy(model, cache, logits, 48, 8).cpu()))
+    (l_cpu, t_cpu), (l_card, t_card) = outs
+    assert float((l_card - l_cpu).abs().max()) <= 1e-4 * float(l_cpu.abs().max())
+    assert torch.equal(t_card, t_cpu)

@@ -27,8 +27,10 @@ from repro.mset import service as jservice
 from repro.mset.sprt import SPRTParams as JaxSPRTParams
 from repro.mset.sprt import sprt as jax_sprt
 from repro_torch import core
-from repro_torch.configs import mset_paper
+from repro_torch.configs import get_config, mset_paper
 from repro_torch.launch import scope
+from repro_torch.launch.serve import generate
+from repro_torch.models import Model, build_model
 from repro_torch.mset import MSETModel, SPRTParams, estimate, service, sprt, train
 from repro_torch.tpss import TPSSParams, draw, synthesize
 from torch_parity_data import WELL_POSED, telemetry
@@ -276,6 +278,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: scope.mset_workload(split=scope.surveillance_split),
         lambda: scope.run_mset("small", reps=1, verbose=False),
         lambda: MSETModel.from_numpy(z, z, z[0], z[0], 1.0, "gaussian"),
+        lambda: Model(get_config("minitron-4b", smoke=True)),
+        lambda: build_model(get_config("minitron-4b", smoke=True)),
+        lambda: generate("minitron-4b"),
+        lambda: Model.from_numpy(get_config("minitron-4b", smoke=True), {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
