@@ -6,7 +6,8 @@ Phases, in order; any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: both kernels, ``kernels/similarity/csrc/similarity.cu`` and
-   ``kernels/attention/csrc/flash.cu``, one nvcc each, started together (ptxas reports);
+   ``kernels/attention/csrc/flash.cu``, one nvcc each, started together; ptxas's
+   registers and spills for each instance (none may spill);
 3. the similarity kernel against its plain version on the card: tests/test_kernels.py's
    sweep (float32 and bfloat16, both kinds) and the MSET2 path's shapes;
 4. its timing with CUDA events at those shapes: kernel, plain version,
@@ -16,7 +17,9 @@ Phases, in order; any failure exits non-zero:
    response surface, recommendation over the h100 shapes, SPRT on the full-width
    residuals, the full-width cell split by step, and the launch counts;
 6. the flash-attention kernel against its plain version: tests/test_kernels.py's
-   shapes plus ragged S, small head dims and GQA, float32 and bfloat16, causal or not;
+   shapes plus ragged S (1, 65, 129 at every head dim), GQA, heads-major strides,
+   large logits (q x 8) and a structured case (q = 0, V[j, d] = j + d / 1000) that
+   shows a permuted P, float32 and bfloat16, causal or not;
 7. flash attention at the serving shape (minitron-4b prefill, B 4, S 2048) and at
    prefill_32k's sequence (one layer): checked, then timed beside the plain version,
    ``scaled_dot_product_attention`` (library yardstick) and the bound;
@@ -35,6 +38,7 @@ Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 
 import importlib
 import json
+import re
 from concurrent.futures import ThreadPoolExecutor
 import os
 import subprocess
@@ -50,7 +54,7 @@ import torch  # noqa: E402
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, bf16 dense tensor
 # cores, HBM3 bandwidth. The similarity kernel's inputs are float32, so its bound is
 # the float32 rate; flash attention's are bf16 on the serving path, so its bound is
-# the bf16 rate (the kernel itself computes in float32 FMA).
+# the bf16 rate (the function's own work: the kernel's hi + lo split of P does 1.5x).
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -64,7 +68,8 @@ TRAIN_SHAPE = (8192, 8192, 1024)  # G = sim(D, D): m x m over n signals
 SURVEIL_SHAPE = (8192, 65536, 1024)  # K = sim(D, X): m x b over n signals
 SMALL_SEED = 0  # small agreement input; its 32 memory vectors are all distinct
 # flash attention (B, S, H, K, hd): tests/test_kernels.py's shapes, ragged S, small
-# head dims, GQA (minitron-4b's 24/8 and granite-20b's 48/1)
+# head dims, GQA (minitron-4b's 24/8 and granite-20b's 48/1), and S = 1, 65 and 129
+# (one row; one key past a tile; one past two) at every head dim
 FLASH_SWEEP = [
     (2, 128, 2, 2, 64),
     (1, 256, 4, 4, 32),
@@ -77,7 +82,14 @@ FLASH_SWEEP = [
     (1, 100, 8, 2, 32),
     (1, 160, 24, 8, 128),
     (1, 100, 48, 1, 128),
-]
+] + [(2, S, 4, 2, hd) for S in (1, 65, 129) for hd in (16, 32, 64, 128)]
+# cases beyond random (B, S, H, K, hd) inputs: heads-major views, q x 8 (large logits,
+# which exercise the rescaling by exp(m_old - m_new)), and the structured case
+FLASH_CASES = (
+    [((2, 200, 8, 2, 64), "heads-major")]
+    + [((2, 200, 8, 2, 128), "q x8"), ((1, 130, 4, 4, 32), "q x8")]
+    + [((1, 200, 4, 2, hd), "structured") for hd in (16, 32, 64, 128)]
+)
 SERVE_SHAPE = (4, 2048, 24, 8, 128)  # minitron-4b prefill of 4 x 2048 tokens
 LONG_SHAPE = (1, 32768, 24, 8, 128)  # prefill_32k's sequence (configs/base.py), one layer
 LONG_TAIL = 1024  # query rows of the long shape checked against the plain version
@@ -171,18 +183,49 @@ def check_flash(out, ref, dtype):
     return float(diff.max()), bool((diff <= flash_bar(ref.float(), dtype)).all())
 
 
-def attention_inputs(shape, dtype, g, dev, heads_major=False):
-    """q (B, S, H, hd), k and v (B, S, K, hd); with ``heads_major`` each is a view of
-    a (B, heads, S, hd) tensor, which the kernel reads through its strides."""
+def attention_inputs(shape, dtype, g, dev, kind="randn"):
+    """q (B, S, H, hd), k and v (B, S, K, hd) from randn. kind "heads-major": each a
+    view of a (B, heads, S, hd) tensor, read through its strides; "q x8": q times 8;
+    "structured": q = 0, so that P is uniform over the unmasked keys, and
+    V[j, d] = j + d / 1000, so that a P or V fragment in the wrong place gives a large
+    error that names the row and column it came from."""
     B, S, H, K, hd = shape
     out = []
     for n in (H, K, K):
-        if heads_major:
+        if kind == "heads-major":
             t = torch.randn(B, n, S, hd, generator=g, device=dev).transpose(1, 2)
         else:
             t = torch.randn(B, S, n, hd, generator=g, device=dev)
-        out.append(t.to(dtype))
-    return out
+        out.append(t)
+    if kind == "q x8":
+        out[0] = out[0] * 8
+    elif kind == "structured":
+        out[0] = torch.zeros_like(out[0])
+        j = torch.arange(S, device=dev, dtype=torch.float32)[:, None]
+        d = torch.arange(hd, device=dev, dtype=torch.float32)[None, :]
+        out[2] = (j + d / 1000).expand(B, K, S, hd).transpose(1, 2)
+    return [t.to(dtype) for t in out]
+
+
+def kernel_label(mangled):
+    """``flash_tc_kernel<128>`` from a mangled name in nvcc's ptxas report."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    kernel, args = m.groups()
+    dtype = {"f": ["float"], "1": ["bf16"]}.get(args[:1], [])  # f, or 13__nv_bfloat16
+    return f"{kernel}<{', '.join(dtype + re.findall(r'Li(-?\d+)E', args))}>"
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill store bytes, spill load bytes) for each instance that
+    ``nvcc -Xptxas -v`` compiled."""
+    rows = re.findall(
+        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads\n[^\n]*Used (\d+) registers",
+        log,
+    )
+    return [(kernel_label(n), int(regs), int(st), int(ld)) for n, st, ld, regs in rows]
 
 
 def numpy_telemetry(seed, p):
@@ -214,16 +257,16 @@ def flash_kernel_phases(dev, card):
 
     print("== 6. flash attention against its plain version on the card")
     g = torch.Generator(device=dev).manual_seed(1)
-    cases = [(shape, False) for shape in FLASH_SWEEP] + [((2, 200, 8, 2, 64), True)]
-    for shape, heads_major in cases:
+    cases = [(shape, "randn") for shape in FLASH_SWEEP] + FLASH_CASES
+    for shape, kind in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = attention_inputs(shape, dtype, g, dev, heads_major)
+            q, k, v = attention_inputs(shape, dtype, g, dev, kind)
             for causal in (True, False):
                 out = gqa_attention(q, k, v, causal=causal, impl="cuda")
                 ref = gqa_attention(q, k, v, causal=causal, impl="ref")
                 err, ok = check_flash(out, ref, dtype)
                 print(
-                    f"  sweep B,S,H,K,hd={shape}{' heads-major' if heads_major else ''} "
+                    f"  sweep B,S,H,K,hd={shape}{'' if kind == 'randn' else ' ' + kind} "
                     f"{str(dtype)[6:]:8s} causal={causal!s:5s} max_abs_err {err:.3e}"
                 )
                 expect(ok, f"flash kernel disagrees at {shape} {dtype} causal={causal}: {err}")
@@ -403,7 +446,11 @@ def main():
     print(f"both kernels built in {time.perf_counter() - t0:.2f} s of wall time")
     for name, built in zip(("similarity", "flash attention"), builds):
         print(f"{name}: {built.library.name}, nvcc {built.seconds:.2f} s (cached={built.cached})")
-        print(built.log.strip())
+        report = ptxas_report(built.log)
+        expect(built.cached or report, f"no ptxas report for {name}")
+        for label, regs, stored, loaded in report:
+            print(f"  {label:28s} {regs:3d} registers, spills {stored} B stored, {loaded} B loaded")
+            expect(stored == 0 and loaded == 0, f"{label} spills registers")
 
     # ------------------------------------------------- 3. kernel vs plain version
     print("== 3. kernel against its plain version on the card")

@@ -6,11 +6,22 @@ bound through ctypes.
 
 What bounds it: 4·B·H·hd·S²/2 operations when causal against the bytes of q, k, v
 and o, so at serving shapes (S in the thousands, hd = 128) it is bound by
-operations. This first kernel computes in IEEE float32 FMA on the CUDA cores (the
-float32 bar of 2e-5 rules out TF32): one block per 64 query rows of one head, a
-loop over 64-key tiles with the running max, denominator and accumulator in
-registers, the loop stopping at the diagonal when causal, ragged S masked in the
-kernel, and KV head h // (H // K) read in place for GQA (no repeated copy).
+operations. In both kernels, each 64 query rows of one head loop over 64-key
+tiles with the running max, denominator and accumulator in registers, stop at the
+diagonal when causal, mask ragged S in the kernel, and read KV head h // (H // K)
+in place for GQA (no repeated copy). One C entry dispatches on dtype:
+
+- bfloat16 (the serving path) runs on the tensor cores. A producer warpgroup's
+  TMA loads fill a ring of two K and two V tiles, signalled by mbarriers; two
+  consumer warpgroups (64 query rows each) compute S = Q·Kᵀ with ``wgmma`` from
+  shared memory, the online softmax in their accumulator registers, and P·V with
+  ``wgmma`` from registers. P is split into bf16 hi + lo and both are multiplied, so that P·V
+  keeps the float32 P of the Pallas kernel: P rounded once to bf16 puts outputs
+  more than one bf16 ulp from the plain version (tests/test_torch_attention.py).
+  TMA needs q, k and v 16-byte aligned with (b, s, h) strides that are multiples
+  of 8 elements; other bf16 inputs raise ``ValueError`` (nothing is copied).
+- float32 keeps the IEEE float32 FMA kernel on the CUDA cores: the float32 bar of
+  2e-5 rules out TF32.
 """
 
 from __future__ import annotations
@@ -46,9 +57,21 @@ def _kernel():
     return _launch_fn
 
 
+def check_tma_layout(name, t):
+    """Raise ValueError unless TMA can load bf16 ``t``: its data 16-byte aligned and
+    its (b, s, h) strides multiples of 8 elements (16 bytes)."""
+    if t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:3]):
+        raise ValueError(
+            f"bfloat16 flash attention loads {name} with TMA, which needs its data 16-byte "
+            f"aligned and its (b, s, h) strides multiples of 8 elements; got data_ptr % 16 = "
+            f"{t.data_ptr() % 16} and strides {tuple(t.stride()[:3])}"
+        )
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with H % K == 0, CUDA tensors, all float32
-    or all bfloat16, each with a contiguous last dim. Returns (B, S, H, hd) in q's dtype.
+    or all bfloat16, each with a contiguous last dim (bfloat16: laid out for TMA, see
+    ``check_tma_layout``). Returns (B, S, H, hd) in q's dtype.
     """
     global launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -75,6 +98,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError("flash_attention_cuda needs a contiguous head dim in q, k and v")
     if B * H > 65535 or S >= 2**31:
         raise ValueError(f"B * H = {B * H} must be <= 65535 and S < 2**31")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, t)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0 or H == 0:
         return out

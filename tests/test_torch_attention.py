@@ -112,3 +112,71 @@ def test_cuda_impl_on_a_cpu_tensor_raises():
     with pytest.raises(ValueError, match="multiple"):
         gqa_attention(q, k[:, :, :1].expand(1, 16, 3, 16), v, impl="ref")
     assert flash_module.launches == before
+
+
+# ---- the bf16 kernel's arithmetic: why P . V takes two bf16 products ---------------
+
+
+def _emulate_bf16_kernel(q, k, v, split_p):
+    """The bf16 CUDA kernel's arithmetic on the CPU: causal online softmax over tiles of
+    64 keys with float32 m, l and acc, scores from bf16 q and k, and P . V with P in bf16,
+    either as hi = bf16(p) plus lo = bf16(p - hi) (two products, as the kernel does) or
+    rounded once (``split_p=False``). Each product of bf16 values is exact in float32,
+    as on the tensor cores; only the order of the float32 sums differs."""
+    B, S, H, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros(B, H, S)
+    acc = torch.zeros(B, H, S, hd)
+    rows = torch.arange(S)
+    for kv0 in range(0, S, 64):
+        kt, vt = kf[:, kv0 : kv0 + 64], vf[:, kv0 : kv0 + 64]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * hd**-0.5
+        cols = kv0 + torch.arange(kt.shape[1])
+        s = s.masked_fill(cols[None, :] > rows[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = torch.einsum("bhqk,bkhd->bhqd", hi, vt)
+        if split_p:
+            lo = (p - hi).bfloat16().float()
+            pv = pv + torch.einsum("bhqk,bkhd->bhqd", lo, vt)
+        acc = alpha[..., None] * acc + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "S,hd,q_scale", [(512, 128, 1.0), (300, 64, 1.0), (512, 128, 4.0), (1024, 16, 1.0)]
+)
+def test_split_p_holds_the_bf16_bar_where_one_rounding_does_not(S, hd, q_scale):
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((1, S, 2, hd)).astype(np.float32))
+        for _ in range(3)
+    )
+    q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+    ref = mha_ref(q, k, v).float()
+    # the card's bf16 bar (chip_smoke.py flash_bar, tests/test_torch_gpu.py): one bf16
+    # ulp of the plain version's output
+    bar = 1e-5 + 2.0**-7 * ref.abs()
+    over = {
+        split: int(((_emulate_bf16_kernel(q, k, v, split).float() - ref).abs() > bar).sum())
+        for split in (True, False)
+    }
+    assert over[True] == 0, over
+    assert over[False] > 0, over
+
+
+def test_tma_layout_rule():
+    check_tma_layout = flash_module.check_tma_layout
+    base = torch.zeros(2 * 64 * 4 * 32 + 8, dtype=torch.bfloat16)
+    check_tma_layout("q", base[: 2 * 64 * 4 * 32].view(2, 64, 4, 32))
+    # heads-major views (the KV cache's layout) are aligned
+    check_tma_layout("v", torch.zeros(2, 4, 64, 32, dtype=torch.bfloat16).transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_tma_layout("q", base[1 : 1 + 2 * 64 * 4 * 32].view(2, 64, 4, 32))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check_tma_layout("k", torch.zeros(2, 64, 4, 36, dtype=torch.bfloat16)[..., :32])

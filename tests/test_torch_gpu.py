@@ -76,7 +76,8 @@ def test_synthesis_on_the_card(cuda):
 
 flash_module = importlib.import_module("repro_torch.kernels.attention.flash")
 
-# (B, S, H, K, hd): tests/test_kernels.py's shapes, ragged S, small head dims and GQA
+# (B, S, H, K, hd): tests/test_kernels.py's shapes, ragged S, small head dims and GQA,
+# and S = 1, 65 and 129 (one row; one key past a tile; one past two) at every head dim
 FLASH_SWEEP = [
     (2, 128, 2, 2, 64),
     (1, 256, 4, 4, 32),
@@ -86,32 +87,78 @@ FLASH_SWEEP = [
     (1, 100, 8, 2, 64),
     (1, 160, 24, 8, 128),
     (1, 100, 48, 1, 128),
-]
+] + [(2, S, 4, 2, hd) for S in (1, 65, 129) for hd in (16, 32, 64, 128)]
+
+
+def _flash_bar(ref, dtype):
+    """float32: tests/test_kernels.py's 2e-5. bfloat16: both sides get the same bf16
+    inputs and compute P . V in float32, so they may differ by one bf16 ulp of the output."""
+    if dtype == torch.float32:
+        return 2e-5 + 2e-5 * ref.abs()
+    return 1e-5 + 2**-7 * ref.abs()
+
+
+def _check_flash(q, k, v, causal, dtype):
+    from repro_torch.kernels import gqa_attention
+
+    before = flash_module.launches
+    out = gqa_attention(q, k, v, causal=causal)
+    assert flash_module.launches == before + 1
+    ref = gqa_attention(q, k, v, causal=causal, impl="ref").float()
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= _flash_bar(ref, dtype)).all()), float(diff.max())
 
 
 @pytest.mark.parametrize("B,S,H,K,hd", FLASH_SWEEP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, B, S, H, K, hd, dtype):
-    from repro_torch.kernels import gqa_attention
-
     g = torch.Generator(device=cuda).manual_seed(S * H + hd)
     q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
     # k and v laid out (B, K, S, hd), as in the KV cache, and read through their strides
     k = torch.randn(B, K, S, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
     v = torch.randn(B, K, S, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
     for causal in (True, False):
-        before = flash_module.launches
-        out = gqa_attention(q, k, v, causal=causal)
-        assert flash_module.launches == before + 1
-        ref = gqa_attention(q, k, v, causal=causal, impl="ref").float()
-        diff = (out.float() - ref).abs()
-        # float32: tests/test_kernels.py's 2e-5. bfloat16: both sides get the same bf16
-        # inputs and compute in float32, so they may differ by one bf16 ulp of the output.
-        if dtype == torch.float32:
-            bar = 2e-5 + 2e-5 * ref.abs()
-        else:
-            bar = 1e-5 + 2**-7 * ref.abs()
-        assert bool((diff <= bar).all()), float(diff.max())
+        _check_flash(q, k, v, causal, dtype)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_large_logits(cuda, hd, dtype):
+    # q x 8: scores of tens, so the running max jumps from tile to tile and the
+    # rescaling by exp(m_old - m_new) carries the result
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = (8 * torch.randn(2, 200, 8, hd, generator=g, device=cuda)).to(dtype)
+    k, v = (torch.randn(2, 200, 2, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    for causal in (True, False):
+        _check_flash(q, k, v, causal, dtype)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_structured_values(cuda, hd, dtype):
+    # q = 0 makes P uniform over the unmasked keys and V[j, d] = j + d / 1000 names its
+    # row and column, so a P fragment or a V row in the wrong place gives a large error
+    S = 200
+    q = torch.zeros(1, S, 4, hd, device=cuda, dtype=dtype)
+    k = torch.randn(1, S, 2, hd, device=cuda).to(dtype)
+    j = torch.arange(S, device=cuda, dtype=torch.float32)[:, None]
+    d = torch.arange(hd, device=cuda, dtype=torch.float32)[None, :]
+    v = (j + d / 1000).expand(1, 2, S, hd).transpose(1, 2).to(dtype)
+    for causal in (True, False):
+        _check_flash(q, k, v, causal, dtype)
+
+
+def test_flash_kernel_refuses_misaligned_bf16_view(cuda):
+    from repro_torch.kernels import gqa_attention
+
+    B, S, H, hd = 1, 64, 2, 64
+    flat = torch.randn(B * S * H * hd + 1, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(B, S, H, hd)  # a storage offset of one element: data_ptr % 16 == 2
+    k = v = flat[:-1].view(B, S, H, hd)
+    before = flash_module.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gqa_attention(q, k, v)
+    assert flash_module.launches == before
 
 
 def test_serve_path_launches_flash_kernel_per_layer(cuda):
