@@ -6,12 +6,19 @@ Phases, in order; any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: both kernels, ``kernels/similarity/csrc/similarity.cu`` and
-   ``kernels/attention/csrc/flash.cu``, one nvcc each, started together; ptxas's
-   registers and spills for each instance (none may spill);
+   ``kernels/attention/csrc/flash.cu`` (each with the shared ``kernels/csrc/hopper.cuh``),
+   one nvcc each, started together; ptxas's registers and spills for each instance
+   (none may spill);
 3. the similarity kernel against its plain version on the card: tests/test_kernels.py's
-   sweep (float32 and bfloat16, both kinds) and the MSET2 path's shapes;
-4. its timing with CUDA events at those shapes: kernel, plain version,
-   ``torch.matmul`` (library yardstick for the product alone) and the bound;
+   sweep plus ragged shapes (n of 1, 3 and 1000; m and b off multiples of 64), float32
+   and bfloat16, both kinds, each also as sim(x, x); the MSET2 path's shapes on randn
+   inputs; and the full-width cell's own operands (its memory matrix D against its
+   standardized surveillance observations), where the kernel and the plain float32
+   version are each held against a float64 product;
+4. its timing with CUDA events at those shapes: kernel, the kernel on bfloat16 inputs
+   (one TF32 product), plain version, ``torch.matmul`` (library yardstick for the
+   product alone; under TF32 too, as context) and the bounds; and the device time of
+   a call by kernel (split pre-pass, product) from torch.profiler;
 5. the MSET2 path: ContainerStress.run_measured over the "paper" grid and the
    full-width Fig. 8 cell (1024 signals, 8192 memory vectors, 65,536 observations),
    response surface, recommendation over the h100 shapes, SPRT on the full-width
@@ -51,15 +58,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, bf16 dense tensor
-# cores, HBM3 bandwidth. The similarity kernel's inputs are float32, so its bound is
-# the float32 rate; flash attention's are bf16 on the serving path, so its bound is
-# the bf16 rate (the function's own work: the kernel's hi + lo split of P does 1.5x).
-F32_FLOPS = 67e12
+# NVIDIA H100 SXM data sheet: TF32 and bf16 dense tensor cores, HBM3 bandwidth. The
+# similarity kernel runs on the TF32 tensor cores, so its bound is the function's own
+# work at the TF32 rate (its three products do 3x, printed beside it); flash
+# attention's inputs are bf16 on the serving path, so its bound is the bf16 rate (the
+# function's own work: the kernel's hi + lo split of P does 1.5x).
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 SWEEP = [(64, 32, 16), (256, 256, 256), (130, 70, 33), (8, 8, 4), (512, 128, 1024)]
+# n of 1, 3 and 1000 (off the kernel's 32-float K tile), m and b off multiples of 64
+RAGGED = [(1, 1, 1), (97, 65, 3), (200, 333, 1000), (129, 191, 1), (300, 257, 3)]
 # Kernel and plain version get the same (bf16-rounded) values and both compute in
 # float32, so bfloat16 inputs are held at the float32 bar.
 TOL = 5e-6
@@ -136,12 +146,111 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(m, b, n, elem_bytes=4):
-    """Least time for sim(x (m,n), y (b,n)): 2mbn float32 operations, or each input read
-    once and the f32 output written once, whichever is longer."""
-    t_ops = 2.0 * m * b * n / F32_FLOPS
+def device_ms_by_kernel(fn, calls=5):
+    """Device time of each kernel that ``fn`` launches, in ms a call: the mean over
+    ``calls`` calls under torch.profiler, after a warm-up call; empty when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0) if us is None else us
+        if us > 0:
+            times[e.key] = us / 1e3 / calls
+    return times
+
+
+def bound(m, b, n, elem_bytes=4, products=1):
+    """Least time for sim(x (m,n), y (b,n)): 2mbn operations (times ``products``) at the
+    TF32 tensor-core rate, or each input read once and the f32 output written once,
+    whichever is longer."""
+    t_ops = 2.0 * m * b * n * products / TF32_FLOPS
     t_bytes = (elem_bytes * (m + b) * n + 4.0 * m * b) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def wide_gamma(x, y):
+    """The larger of the median distance and a third of the largest, so that no value of
+    either kind is near 0 even at n = 1 (gaussian >= exp(-4.5))."""
+    d = torch.cdist(x.float(), y.float())
+    return max(float(d.median()), float(d.max()) / 3, 1e-3)
+
+
+def check_ragged(x, y, gamma, kind, out, ref):
+    """The kernel's output ``out`` against the plain version ``ref`` and float64.
+
+    A pair is ill-conditioned in float32 when moving its d2 by eight float32 roundings of
+    the norms, 8 eps (|x_i|^2 + |y_j|^2), moves its similarity by more than half the bar:
+    at n of 1 or 3 with inverse_distance, pairs so close that d2 = |x|^2 + |y|^2 - 2 x.y
+    is mostly rounding, where no two float32 orders of rounding agree to the bar. There
+    the kernel must be within the cancellation bound of float64,
+    sqrt(2 (n + 1) eps (|x_i|^2 + |y_j|^2)) / gamma (G's diagonal bound, pair by pair);
+    at every other pair, within the bar of the plain version. Returns (the error against
+    the plain version where it applies, the number of ill-conditioned pairs, the kernel's
+    error against float64 there, ok)."""
+    x64, y64 = x.double(), y.double()
+    norms = (x64 * x64).sum(1)[:, None] + (y64 * y64).sum(1)[None, :]
+    d2 = (norms - 2 * x64 @ y64.T).clamp(min=0)
+
+    def h(v):
+        if kind == "inverse_distance":
+            return 1 / (1 + v.sqrt() / gamma)
+        return (-v / (2 * gamma**2)).exp()
+
+    exact = h(d2)
+    ill = (exact - h(d2 + 8 * EPS32 * norms)).abs() > TOL / 2
+    diff = (out - ref).abs()
+    err = float(diff.masked_fill(ill, 0).max())
+    ok = bool((diff <= TOL + TOL * ref.abs()).masked_fill(ill, True).all())
+    far = (out.double() - exact).abs()
+    bound = torch.sqrt(2 * (x.shape[1] + 1) * EPS32 * norms) / gamma
+    ok = ok and bool((far <= bound).masked_fill(~ill, True).all())
+    far_err = float(far[ill].max()) if bool(ill.any()) else 0.0
+    return err, int(ill.sum()), far_err, ok
+
+
+def check_self(x, gamma, similarity_cuda, similarity_ref):
+    """sim(x, x), which the kernel splits once: equal to sim(x, x.clone()), and held to
+    the plain version as ``check_ragged`` holds a pair; the diagonal (d2 = 0) is
+    ill-conditioned, so it is held to G's cancellation bound row by row, with n + 1 in
+    place of n for the split's dropped lo.lo (at most 2^-22 |x|^2). Returns
+    ``check_ragged``'s four values, ok also requiring the equality."""
+    same, copy = similarity_cuda(x, x, gamma), similarity_cuda(x, x.clone(), gamma)
+    err, n_ill, far_err, ok = check_ragged(x, x, gamma, KINDS[0], same, similarity_ref(x, x, gamma))
+    return err, n_ill, far_err, ok and torch.equal(same, copy)
+
+
+def float64_errors(D, X, gamma, similarity_cuda, similarity_ref):
+    """max |kernel - exact| and max |plain - exact| for each kind, exact being the
+    similarity of D and X computed in float64 on the card."""
+    D64, X64 = D.double(), X.double()
+    d2 = D64 @ X64.T
+    d2.mul_(-2).add_((D64 * D64).sum(1)[:, None]).add_((X64 * X64).sum(1)[None, :])
+    d2.clamp_(min=0)
+    del D64, X64
+    errs = {}
+    for kind in KINDS:
+        if kind == "inverse_distance":
+            exact = d2.sqrt().div_(gamma).add_(1).reciprocal_()
+        else:
+            exact = d2.div(-2 * gamma * gamma).exp_()
+        row = {}
+        for name, fn in (("kernel", similarity_cuda), ("plain", similarity_ref)):
+            out = fn(D, X, gamma, kind).double()
+            row[name] = float(out.sub_(exact).abs_().max())
+            del out
+        errs[kind] = row
+        del exact
+    del d2
+    torch.cuda.empty_cache()
+    return errs
 
 
 def step_timer():
@@ -208,13 +317,18 @@ def attention_inputs(shape, dtype, g, dev, kind="randn"):
 
 
 def kernel_label(mangled):
-    """``flash_tc_kernel<128>`` from a mangled name in nvcc's ptxas report."""
+    """``flash_tc_kernel<128>`` or ``similarity_tc_kernel<0, true>`` from a mangled name
+    in nvcc's ptxas report."""
     m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
     if m is None:
         return mangled
     kernel, args = m.groups()
     dtype = {"f": ["float"], "1": ["bf16"]}.get(args[:1], [])  # f, or 13__nv_bfloat16
-    return f"{kernel}<{', '.join(dtype + re.findall(r'Li(-?\d+)E', args))}>"
+    values = [
+        v if t == "i" else ("true" if v == "1" else "false")
+        for t, v in re.findall(r"L([ib])(-?\d+)E", args)
+    ]
+    return f"{kernel}<{', '.join(dtype + values)}>"
 
 
 def ptxas_report(log):
@@ -449,27 +563,49 @@ def main():
         report = ptxas_report(built.log)
         expect(built.cached or report, f"no ptxas report for {name}")
         for label, regs, stored, loaded in report:
-            print(f"  {label:28s} {regs:3d} registers, spills {stored} B stored, {loaded} B loaded")
+            print(f"  {label:34s} {regs:3d} registers, spills {stored} B stored, {loaded} B loaded")
             expect(stored == 0 and loaded == 0, f"{label} spills registers")
+        for line in built.log.splitlines():
+            if "wgmma" in line:  # ptxas says so when it serializes the asynchronous products
+                print(f"  ptxas: {line.strip()}")
 
     # ------------------------------------------------- 3. kernel vs plain version
     print("== 3. kernel against its plain version on the card")
     g = torch.Generator(device=dev).manual_seed(0)
-    for m, b, n in SWEEP:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(m, n, generator=g, device=dev).to(dtype)
-            y = torch.randn(b, n, generator=g, device=dev).to(dtype)
-            # the median distance of the inputs keeps both kinds well away from 0
-            gamma = float(_bandwidth(x.float()))
-            for kind_ in KINDS:
-                out, ref = similarity_cuda(x, y, gamma, kind_), similarity_ref(x, y, gamma, kind_)
-                err, ok = compare(out, ref, TOL, TOL)
+    for shapes in (SWEEP, RAGGED):
+        for m, b, n in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(m, n, generator=g, device=dev).to(dtype)
+                y = torch.randn(b, n, generator=g, device=dev).to(dtype)
+                # the median distance of the inputs keeps both kinds well away from 0
+                # (at n = 1 and 3, a third of the largest distance does)
+                gamma = float(_bandwidth(x.float())) if shapes is SWEEP else wide_gamma(x, y)
+                for kind_ in KINDS:
+                    out = similarity_cuda(x, y, gamma, kind_)
+                    ref = similarity_ref(x, y, gamma, kind_)
+                    if shapes is SWEEP:
+                        err, ok = compare(out, ref, TOL, TOL)
+                        extra = ""
+                    else:
+                        err, n_cancel, far_err, ok = check_ragged(x, y, gamma, kind_, out, ref)
+                        extra = (
+                            f"; {n_cancel} ill-conditioned pairs, there {far_err:.3e} from float64"
+                            if n_cancel
+                            else ""
+                        )
+                    print(
+                        f"  sweep {m}x{b}x{n} {str(dtype)[6:]:8s} {kind_:16s} gamma {gamma:7.3f} "
+                        f"min {float(ref.min()):.3f} max_abs_err {err:.3e} (bar {TOL:g}){extra}"
+                    )
+                    expect(float(ref.min()) > 0.01, f"sweep values near 0 at {m}x{b}x{n} {kind_}")
+                    expect(ok, f"kernel disagrees at {m}x{b}x{n} {dtype} {kind_}: {err}")
+                err, n_ill, far_err, ok = check_self(x, gamma, similarity_cuda, similarity_ref)
                 print(
-                    f"  sweep {m}x{b}x{n} {str(dtype)[6:]:8s} {kind_:16s} gamma {gamma:7.3f} "
-                    f"min {float(ref.min()):.3f} max_abs_err {err:.3e} (bar {TOL:g})"
+                    f"  sweep {m}x{m}x{n} {str(dtype)[6:]:8s} sim(x, x) max_abs_err {err:.3e}; "
+                    f"{n_ill} ill-conditioned pairs with the diagonal, there {far_err:.3e} from "
+                    "float64; equal to sim(x, x.clone())"
                 )
-                expect(float(ref.min()) > 0.01, f"sweep values near 0 at {m}x{b}x{n} {kind_}")
-                expect(ok, f"kernel disagrees at {m}x{b}x{n} {dtype} {kind_}: {err}")
+                expect(ok, f"sim(x, x) at {m}x{n} {dtype}: {err}, {far_err}")
     torch.cuda.synchronize()
 
     m, b, n = SURVEIL_SHAPE
@@ -497,22 +633,76 @@ def main():
     del K, K_ref
     max_abs_err = max(off_err, surv_err)
 
+    # The full-width cell's own operands: its memory matrix against its standardized
+    # surveillance observations, as train and estimate make them. The kernel may be no
+    # further from float64 than the plain float32 version is, plus the bar.
+    p = FULL_WIDTH_CELL
+    n_tr, n_surv = surveillance_split(p)
+    tpss = TPSSParams(n_signals=p["n_signals"], n_obs=n_tr + n_surv)
+    Xall = synthesize(cell_seed(p), tpss, device=dev)
+    cell_model = train(Xall[:n_tr], n_memvec=p["n_memvec"])
+    Xs = (Xall[n_tr:] - cell_model.mean) / cell_model.std
+    del Xall
+    tpss_errs = float64_errors(cell_model.D, Xs, cell_model.gamma, similarity_cuda, similarity_ref)
+    for kind_, e in tpss_errs.items():
+        print(
+            f"  full-width cell D {tuple(cell_model.D.shape)} x standardized X {tuple(Xs.shape)} "
+            f"{kind_:16s} against float64: kernel {e['kernel']:.3e}, plain f32 {e['plain']:.3e} "
+            f"(kernel bar: plain + {TOL:g})"
+        )
+        expect(e["kernel"] <= e["plain"] + TOL, f"kernel far from float64 on the cell's {kind_}")
+    del cell_model, Xs
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------------------- 4. timing
     print(f"== 4. timing (CUDA events; {card})")
     timings = {}
     for label, (m, b, n), iters in (("train", TRAIN_SHAPE, 20), ("surveil", SURVEIL_SHAPE, 10)):
         x, y = D, (D if label == "train" else X)
         ms = cuda_ms(lambda: similarity_cuda(x, y, gamma), iters)
+        xb = x.bfloat16()
+        yb = xb if label == "train" else y.bfloat16()
+        one_product_ms = cuda_ms(lambda: similarity_cuda(xb, yb, gamma), iters)
+        del xb, yb
         plain_ms = cuda_ms(lambda: similarity_ref(x, y, gamma), iters)
         library_ms = cuda_ms(lambda: torch.matmul(x, y.T), iters)
+        # context only: the product in one TF32 pass, which misses the float32 bar
+        torch.set_float32_matmul_precision("high")
+        tf32_ms = cuda_ms(lambda: torch.matmul(x, y.T), iters)
+        f32_matmul_highest()
+        expect(
+            torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "float32 products were not restored to full float32",
+        )
         bound_ms, bound_by = bound(m, b, n)
+        bound_3x_ms, _ = bound(m, b, n, products=3)
+        # device time of the pre-pass and of the product, a call, under torch.profiler
+        device_ms = {
+            re.sub(r"^void \(anonymous namespace\)::|\(.*$", "", name): ms
+            for name, ms in device_ms_by_kernel(lambda: similarity_cuda(x, y, gamma)).items()
+        }
         timings[label] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by
+            ms=ms,
+            plain_ms=plain_ms,
+            library_ms=library_ms,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            bound_3x_ms=bound_3x_ms,
+            one_product_ms=one_product_ms,
+            tf32_matmul_ms=tf32_ms,
+            device_ms=device_ms,
         )
         print(
-            f"  {label} {m}x{b}x{n} f32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"torch.matmul {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-            f"kernel at {bound_ms / ms:.1%} of bound"
+            f"  {label} {m}x{b}x{n} f32: kernel {ms:.3f} ms, on bf16 inputs (one TF32 product) "
+            f"{one_product_ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms "
+            f"(TF32, context only: {tf32_ms:.3f} ms), bound {bound_ms:.3f} ms ({bound_by}; "
+            f"three TF32 products at peak {bound_3x_ms:.3f} ms), kernel at "
+            f"{bound_ms / ms:.1%} of bound, {bound_3x_ms / ms:.1%} of the 3xTF32 peak"
+        )
+        print(
+            "    device time by kernel (torch.profiler): "
+            + (", ".join(f"{k} {v:.3f} ms" for k, v in device_ms.items()) or "not measured")
         )
     del D, X
 
@@ -638,6 +828,11 @@ def main():
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "bound_3x_ms": t["bound_3x_ms"],
+            "one_product_ms": t["one_product_ms"],
+            "tf32_matmul_ms": t["tf32_matmul_ms"],
+            "device_ms": t["device_ms"],
+            "float64_err": tpss_errs,
             "shape": "x {0}x{2}, y {1}x{2}, float32 (K = sim(D, X))".format(*SURVEIL_SHAPE),
             "train_shape": dict(timings["train"], shape=train_shape),
         },

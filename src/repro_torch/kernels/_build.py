@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use into
 a shared library under ``_build/`` (listed in ``.gitignore``), keyed by a hash of
-its source and flags, so an edited source is rebuilt and an unchanged one is
+its source, the headers it includes with quotes (``kernels/csrc/hopper.cuh``) and
+the flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. Nothing is compiled when a module is imported: the CPU tests
 import every module on machines without nvcc.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,6 +43,7 @@ class BuildResult:
 
 
 _LIBS: dict[Path, ctypes.CDLL] = {}
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -51,11 +54,31 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; cannot build CUDA kernels")
 
 
+def sources(source: Path) -> list[Path]:
+    """``source`` and every file it includes with quotes, directly or through another,
+    each resolved against the directory of the file that includes it."""
+    seen, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            includes = _QUOTED_INCLUDE.findall(path.read_text())
+            todo.extend((path.parent / inc).resolve() for inc in reversed(includes))
+    return seen
+
+
+def tag(source: Path) -> str:
+    """Hash of ``source``, the headers it includes and the flags: the library's key."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(source):
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(source: Path) -> BuildResult:
     """Compile ``source`` into a shared library, unless it is already built."""
     source = Path(source).resolve()
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    library = BUILD_DIR / f"{source.stem}-{tag}.so"
+    library = BUILD_DIR / f"{source.stem}-{tag(source)}.so"
     if library.exists():
         return BuildResult(library, "", 0.0, cached=True)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,35 @@
+"""The port's kernel builder: what keys a built library (no nvcc needed)."""
+
+import importlib
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels import _build
+
+
+def test_an_edited_header_changes_the_build_key(tmp_path):
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "inc").mkdir()
+    header = tmp_path / "inc" / "shared.cuh"
+    nested = tmp_path / "inc" / "nested.cuh"
+    source = tmp_path / "csrc" / "kernel.cu"
+    nested.write_text("// nested\n")
+    header.write_text('#pragma once\n#include "nested.cuh"\n')
+    # an angle include is not followed; a quoted one is, once, however it is spaced
+    source.write_text(
+        '#include <cuda.h>\n#include "../inc/shared.cuh"\n  # include "../inc/shared.cuh"\n'
+    )
+    assert _build.sources(source) == [source.resolve(), header.resolve(), nested.resolve()]
+    before = _build.tag(source)
+    assert _build.tag(source) == before
+    nested.write_text("// nested, edited\n")
+    assert _build.tag(source) != before
+
+
+def test_both_kernels_include_the_shared_hopper_header():
+    shared = (_build.BUILD_DIR.parent / "csrc" / "hopper.cuh").resolve()
+    for module in ("similarity.similarity", "attention.flash"):
+        source = importlib.import_module(f"repro_torch.kernels.{module}").SOURCE
+        assert shared in _build.sources(source)
