@@ -28,8 +28,9 @@ Phases, in order; any failure exits non-zero:
    large logits (q x 8) and a structured case (q = 0, V[j, d] = j + d / 1000) that
    shows a permuted P, float32 and bfloat16, causal or not;
 7. flash attention at the serving shape (minitron-4b prefill, B 4, S 2048) and at
-   prefill_32k's sequence (one layer): checked, then timed beside the plain version,
-   ``scaled_dot_product_attention`` (library yardstick) and the bound;
+   prefill_32k's sequence (one layer) in bfloat16, and at the serving shape in float32:
+   checked, then timed beside the plain version, ``scaled_dot_product_attention``
+   (library yardstick) and the bound;
 8. the LM serving path: ``generate("minitron-4b", smoke=False)`` at full width
    (32 layers, 4.19 B parameters, bf16) with 4 prompts of 2048 tokens and 32 new
    tokens, warm-up then timed, the kernel's launch count, and one prefill split
@@ -37,8 +38,14 @@ Phases, in order; any failure exits non-zero:
 9. correctness of that path: decode after prefill(x[:-1]) equals prefill(x) at full
    width in float32, and the smoke config's logits and greedy tokens on the card
    equal those on the CPU;
-10. one JSON line describing each kernel;
-11. last line: ``{"ok": true, "device": {...}}``.
+10. the fleet simulator's compiled backend (``backend="torch"``) against the numpy
+    engine: window-sum order; the golden scenarios of tests/test_jax_backend.py at its
+    bar and the substep grid bit for bit; every policy kernel step by step; the tuning
+    round at 24 and 512 candidates x 12 seeds x 720 bins, cold and warm, with its peak
+    memory, fixed rows against numpy, and launches per bin from torch.profiler; the
+    substep cell and the fidelity case bit for bit; then one JSON line of its numbers;
+11. one JSON line describing each kernel;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -65,6 +72,7 @@ import torch  # noqa: E402
 # function's own work: the kernel's hi + lo split of P does 1.5x).
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # float32 FMA outside the tensor cores: flash attention's float32 path
 HBM_BYTES_PER_S = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 SWEEP = [(64, 32, 16), (256, 256, 256), (130, 70, 33), (8, 8, 4), (512, 128, 1024)]
@@ -105,6 +113,20 @@ LONG_SHAPE = (1, 32768, 24, 8, 128)  # prefill_32k's sequence (configs/base.py),
 LONG_TAIL = 1024  # query rows of the long shape checked against the plain version
 SERVE_ARCH = "minitron-4b"
 SERVE = dict(batch=4, prompt_len=2048, gen_tokens=32)
+# The fleet phase's tuning rounds: benchmarks/tune_controller.py's flash-crowd
+# predictive-tuning scenario, raced as (candidates, seeds, seconds at dt 5 s, tile).
+# 24 x 12 x 720 bins is benchmarks/sim_perf.py's headline; 512 at tile 512 is the
+# portfolio round's tile width. The rows checked against numpy are fixed in advance.
+FLEET_LATTICES = (
+    (24, 12, 3600.0, None, (0, 1, 23)),
+    (512, 12, 3600.0, 512, (0, 1, 255, 256, 510, 511)),
+)
+FLEET_SUBSTEP_CELL = (8, 8, 720.0)  # sim_perf.py's SUBSTEP_CELL: n_substeps 4, preemptive
+FLEET_FIDELITY = (600.0, 4)  # sim_perf.py's fidelity workload: seconds at dt 2 s, seeds
+FLEET_WARM = 2  # warm dispatches timed after the cold one (cut from 3 to fit the run's time)
+# Dispatches counted under torch.profiler, each at two lengths so that the count a bin
+# is the difference (set-up and output copies cancel): (candidates, seeds, seconds).
+FLEET_PROFILE = {"coarse": (24, 12, (150.0, 300.0)), "substep": (8, 12, (25.0, 50.0))}
 
 
 class SmokeFailure(RuntimeError):
@@ -269,12 +291,12 @@ def step_timer():
     return split, step
 
 
-def attention_bound(B, S, H, K, hd):
-    """Least time for causal bf16 attention: 4·B·H·hd·S(S+1)/2 operations at the bf16
-    tensor core rate, or q, k, v read once and o written once (2 bytes an element),
-    whichever is longer."""
-    t_ops = 4.0 * B * H * hd * S * (S + 1) / 2 / BF16_FLOPS
-    t_bytes = 2.0 * B * S * hd * (2 * H + 2 * K) / HBM_BYTES_PER_S
+def attention_bound(B, S, H, K, hd, flops=BF16_FLOPS, elem_bytes=2):
+    """Least time for causal attention: 4·B·H·hd·S(S+1)/2 operations at ``flops`` (the
+    bf16 tensor core rate by default; float32 runs on the CUDA cores' FMA), or q, k, v
+    read once and o written once, whichever is longer."""
+    t_ops = 4.0 * B * H * hd * S * (S + 1) / 2 / flops
+    t_bytes = elem_bytes * B * S * hd * (2 * H + 2 * K) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -426,6 +448,34 @@ def flash_kernel_phases(dev, card):
             f"{t['ms'] / t['library_ms']:.1f}x SDPA's time"
         )
         del q, k, v, qt, kt, vt
+
+    # The float32 instance at the serving shape: the FMA kernel that every float32
+    # forward takes, beside SDPA in float32 and the bound at the CUDA cores' FMA rate.
+    shape = SERVE_SHAPE
+    B, S, H, K, hd = shape
+    q, k, v = attention_inputs(shape, torch.float32, g, dev)
+    err, ok = check_flash(
+        gqa_attention(q, k, v, impl="cuda"), gqa_attention(q, k, v, impl="ref"), torch.float32
+    )
+    print(f"  serve_f32 B,S,H,K,hd={shape} f32 causal, all {S} rows: max_abs_err {err:.3e}")
+    expect(ok, f"flash kernel disagrees at the float32 serving shape: {err}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    t = dict(
+        ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="cuda"), 5),
+        plain_ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="ref"), 2, 1),
+        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+        max_abs_err=err,
+    )
+    t["bound_ms"], t["bound_by"] = attention_bound(*shape, flops=F32_FLOPS, elem_bytes=4)
+    t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, float32, causal"
+    timings["serve_f32"] = t
+    print(
+        f"  serve_f32: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+        f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}, float32 "
+        f"FMA 67 TFLOP/s), kernel at {t['bound_ms'] / t['ms']:.2%} of bound, "
+        f"{t['ms'] / t['library_ms']:.1f}x SDPA's time"
+    )
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return timings
 
@@ -518,6 +568,265 @@ def serving_phases(dev, card, flash_module):
     expect(err <= bar, "prefill logits on the card disagree with the CPU")
     expect(torch.equal(t_card, t_cpu), "greedy tokens on the card differ from the CPU")
     return launches
+
+
+def checked(label, fn, *args):
+    """Run one of the shared CPU-test checks (tests/torch_fleet_cases.py) on the card;
+    a failed assertion in it fails the smoke run."""
+    try:
+        fn(*args)
+    except AssertionError as e:
+        raise SmokeFailure(f"{label}: {e}") from e
+
+
+def profile_counts(fn):
+    """What ``fn`` asked of the card, from torch.profiler: kernel launches by name,
+    copies and memsets, the host's CUDA synchronisations (stream and device
+    synchronises, and blocking copies), and the share of ``fn``'s wall time (under the
+    profiler) that the card spent in its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, copies, syncs, busy_us = {}, 0, 0, 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            if e.key.startswith(("Memcpy", "Memset")):
+                copies += e.count
+            else:
+                kernels[e.key] = e.count
+                us = getattr(e, "self_device_time_total", None)
+                busy_us += getattr(e, "self_cuda_time_total", 0) if us is None else us
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"):
+            syncs += e.count
+    return kernels, copies, syncs, busy_us / wall_us
+
+
+def fleet_phase(dev, card):
+    """Phase 10: the fleet simulator's compiled backend (``backend="torch"``) on the
+    card against the port's numpy engine. Returns the fleet JSON record."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fleet_cases import (
+        DISCIPLINES,
+        FAMILIES,
+        GOLDEN,
+        SUBSTEP_GRID,
+        bit_gap,
+        check_forecaster,
+        check_kernel_steps,
+        check_lattice,
+        coarse_gap,
+        fidelity_run,
+        flash_slate,
+        substep_run,
+    )
+
+    from repro_torch.fleet import PredictivePolicy, simulate_fleet, torchsim
+    from repro_torch.fleet.kernels import _ages, _window_sum, div, seq_sum0
+
+    on_card = dict(backend="torch", device=dev)
+    rec = {"card": card}
+    print(f"== 10. the fleet simulator's compiled backend on {card}")
+    t_phase = time.perf_counter()
+
+    # The order of the window sums, and the reason no tensor is divided by a number.
+    rng = np.random.default_rng(0)
+    for shape in ((48, 512, 12), (12, 24, 12), (9, 1, 1), (30,)):
+        x = rng.random(shape) * np.exp(rng.normal(0, 6, shape))
+        want = x[0].copy()
+        for row in x[1:]:
+            want = want + row
+        got = seq_sum0(torch.from_numpy(x).to(dev)).cpu().numpy()
+        expect(np.array_equal(got, want), f"window sum {shape} is not left to right on the card")
+    # one seed: numpy sums a window pairwise, and so must the kernels (up to 240 bins)
+    for W in (20, 48, 240):
+        x = rng.random((W, 64, 1)) * np.exp(rng.normal(0, 6, (W, 64, 1)))
+        w = rng.integers(1, W + 1, (64, 1)).astype(float)
+        got = _window_sum(torch.from_numpy(x).to(dev), _ages(W, dev), torch.from_numpy(w).to(dev))
+        want = [np.ascontiguousarray(x[W - int(k):, i]).sum(axis=0) for i, k in enumerate(w[:, 0])]
+        expect(np.array_equal(got.cpu().numpy(), np.array(want)), f"one-seed window sum {W}")
+    x = torch.from_numpy(rng.random(1 << 20) * 1e3).to(dev)
+    y = x.cpu().numpy() / 3.7
+    rec["host_scalar_div_ulp_mismatches"] = int((x / 3.7).cpu().numpy().__ne__(y).sum())
+    expect(np.array_equal(div(x, 3.7).cpu().numpy(), y), "div() is not the IEEE quotient")
+    print(
+        "  window sums add left to right (cumsum along an outer dim), and pairwise as numpy "
+        "does with one seed, bit for bit; "
+        f"x / 3.7 by a host scalar differs from the IEEE quotient in "
+        f"{rec['host_scalar_div_ulp_mismatches']} of {x.numel()} doubles (div() in none)"
+    )
+
+    # 1. Golden scenarios and the substep grid, at tests/test_jax_backend.py's and
+    #    tests/test_substep.py's bars; the policy kernels step by step; the lattice.
+    golden = {}
+    for name, run in GOLDEN.items():
+        err, q_err, ok = coarse_gap(run(), run(**on_card))
+        golden[name] = err
+        print(f"  golden {name:24s} max |torch - numpy| {err:.3e}, sojourn quantiles {q_err:.1e}")
+        expect(ok, f"golden scenario {name} misses the coarse bar on the card")
+    for disc in DISCIPLINES:
+        for n_sub, pre in SUBSTEP_GRID:
+            ref = substep_run(disc, n_sub, pre)
+            same, err = bit_gap(ref, substep_run(disc, n_sub, pre, **on_card))
+            expect(same, f"substep {disc} n={n_sub} pre={pre} not bit-exact ({err:.3e})")
+    print(f"  substep grid {DISCIPLINES} x {SUBSTEP_GRID}: bit-exact")
+    for family in FAMILIES:
+        checked(f"policy kernel {family}", check_kernel_steps, family, dev)
+    checked("forecaster", check_forecaster, dev)
+    checked("lattice", check_lattice, dev)
+    print(f"  policy kernels {FAMILIES}, the forecaster and a tiled lattice: identical to numpy")
+    rec["golden_max_abs_err"] = golden
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # 2. The tuning round at the size users race.
+    lattices = []
+    for n, seeds, duration, tile, rows in FLEET_LATTICES:
+        wl, fleet, params, ctx = flash_slate(n, n_seeds=seeds, duration=duration)
+        pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
+        kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(1 + FLEET_WARM):
+            t0 = time.perf_counter()
+            out = torchsim.run_dynamics(kernel, **kw, tile=tile, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        sims = torchsim.slate_results(
+            wl, fleet, [pols[i] for i in rows], {k: v[list(rows)] for k, v in out.items()}
+        )
+        errs = []
+        for i, sim in zip(rows, sims):
+            ref = simulate_fleet(wl, fleet, PredictivePolicy.from_params(params[i], **ctx))
+            err, q_err, ok = coarse_gap(ref, sim)
+            errs.append(err)
+            expect(ok, f"lattice {n}: candidate {i} misses the coarse bar against numpy")
+        item = dict(
+            candidates=n, seeds=seeds, bins=wl.n_bins, tile=tile, cold_s=times[0],
+            warm_s=times[1:], peak_gib=peak / 2**30, rows_checked=list(rows),
+            max_abs_err=max(errs),
+        )
+        if n == FLEET_LATTICES[0][0]:
+            t0 = time.perf_counter()
+            for p in params:
+                simulate_fleet(wl, fleet, PredictivePolicy.from_params(p, **ctx))
+            item["numpy_s"] = time.perf_counter() - t0
+        lattices.append(item)
+        print(
+            f"  lattice {n} x {seeds} x {wl.n_bins} bins (tile {tile}): cold {times[0]:.3f} s, "
+            f"warm {', '.join(f'{t:.3f}' for t in times[1:])} s, peak {peak / 2**30:.3f} GiB; "
+            f"rows {rows} at the coarse bar, max |torch - numpy| {max(errs):.3e}"
+            + (f"; numpy over the slate {item['numpy_s']:.3f} s" if "numpy_s" in item else "")
+        )
+        del out, sims
+    rec["lattices"] = lattices
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # Launches a bin and host synchronisations, from torch.profiler over one dispatch
+    # at each of two lengths: the loop queues work and never waits for the card, so
+    # the synchronisations (the output copies at the end) do not grow with the bins.
+    launches = {}
+    for label, (n, seeds, durations) in FLEET_PROFILE.items():
+        sub = dict(n_substeps=4, preemptive=True) if label == "substep" else {}
+        counts = []
+        for duration in durations:
+            wl, fleet, params, ctx = flash_slate(n, n_seeds=seeds, duration=duration)
+            pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
+            kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
+            torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
+            kernels, copies, syncs, busy = profile_counts(
+                lambda: torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
+            )
+            counts.append((wl.n_bins, sum(kernels.values()), copies, syncs, kernels, busy))
+        (b0, k0, c0, s0, _, _), (b1, k1, c1, s1, by_name, busy) = counts
+        expect(k1 > k0 > 0, f"torch.profiler saw no kernels in the {label} dispatches")
+        expect(s1 == s0, f"host synchronisations grow with the bins in the {label} loop")
+        per_bin = (k1 - k0) / (b1 - b0)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        launches[label] = dict(
+            bins=[b0, b1],
+            kernels=[k0, k1],
+            copies=[c0, c1],
+            host_syncs=[s0, s1],
+            kernels_per_bin=per_bin,
+            top_kernels_per_bin={k: v / b1 for k, v in top},
+            device_busy_share=busy,
+        )
+        print(
+            f"  {label} dispatch, {n} candidates x {seeds} seeds x {b0} / {b1} bins: "
+            f"{k0} / {k1} kernel launches ({per_bin:.1f} a bin), {c0} / {c1} copies and "
+            f"memsets, {s0} / {s1} host synchronisations; kernels busy the card "
+            f"{busy:.1%} of the {b1}-bin dispatch's wall time under the profiler"
+        )
+        print("    most launched a bin: " + ", ".join(f"{k[:40]} {v / b1:.1f}" for k, v in top))
+    rec["launches"] = launches
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    # 3. The substep engine: sim_perf.py's SUBSTEP_CELL, and its fidelity workload
+    #    under preemptive EDF, each on the card against numpy, bit for bit.
+    n, seeds, duration = FLEET_SUBSTEP_CELL
+    sub = dict(n_substeps=4, preemptive=True)
+    wl, fleet, params, ctx = flash_slate(n, n_seeds=seeds, duration=duration)
+    pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
+    kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
+    t0 = time.perf_counter()
+    out = torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
+    torch_s = time.perf_counter() - t0
+    sims = torchsim.slate_results(wl, fleet, pols, out, **sub)
+    t0 = time.perf_counter()
+    refs = [
+        simulate_fleet(wl, fleet, PredictivePolicy.from_params(p, **ctx), **sub) for p in params
+    ]
+    numpy_s = time.perf_counter() - t0
+    for i, (ref, sim) in enumerate(zip(refs, sims)):
+        same, err = bit_gap(ref, sim)
+        expect(same, f"substep cell candidate {i} not bit-exact ({err:.3e})")
+    rec["substep_cell"] = dict(
+        candidates=n,
+        seeds=seeds,
+        bins=wl.n_bins,
+        n_substeps=4,
+        preemptive=True,
+        torch_s=torch_s,
+        numpy_s=numpy_s,
+        bit_exact=True,
+    )
+    print(
+        f"  substep cell {n} x {seeds} x {wl.n_bins} bins, n_substeps 4, preemptive: one "
+        f"dispatch {torch_s:.3f} s, numpy {numpy_s:.3f} s; all {n} bit-exact"
+    )
+    t0 = time.perf_counter()
+    ref = fidelity_run(*FLEET_FIDELITY)
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = fidelity_run(*FLEET_FIDELITY, **on_card)
+    torch_s = time.perf_counter() - t0
+    same, err = bit_gap(ref, sim)
+    n_pre = float(sim.preemptions.sum())
+    expect(same, f"fidelity case not bit-exact ({err:.3e})")
+    expect(n_pre > 0, "the fidelity case never preempted")
+    rec["fidelity"] = dict(
+        bins=sim.served.shape[1],
+        seeds=sim.served.shape[0],
+        classes=len(sim.classes),
+        torch_s=torch_s,
+        numpy_s=numpy_s,
+        preemptions=n_pre,
+        bit_exact=True,
+    )
+    print(
+        f"  fidelity (tiered-SLA, EDF, preemptive, {sim.served.shape[0]} seeds x "
+        f"{sim.served.shape[1]} bins): simulate {torch_s:.3f} s on the card, numpy "
+        f"{numpy_s:.3f} s, {n_pre:.0f} preemptions, bit-exact"
+    )
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the fleet phase took {rec['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main():
@@ -812,7 +1121,11 @@ def main():
     flash_timings = flash_kernel_phases(dev, card)
     flash_launches = serving_phases(dev, card, flash_module)
 
-    # ----------------------------------------------------------- 10. kernels
+    # ------------------------------------------------------------ 10. fleet
+    fleet = fleet_phase(dev, card)
+    print(json.dumps({"fleet": fleet}))
+
+    # ----------------------------------------------------------- 11. kernels
     t = timings["surveil"]
     train_shape = "x = y {0}x{2}, float32 (G = sim(D, D))".format(*TRAIN_SHAPE)
     kernels = [
@@ -845,6 +1158,7 @@ def main():
             **flash_timings["serve"],
             "max_abs_err": max(t["max_abs_err"] for t in flash_timings.values()),
             "prefill_32k": flash_timings["prefill_32k"],
+            "serve_f32": flash_timings["serve_f32"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

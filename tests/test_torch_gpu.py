@@ -17,6 +17,19 @@ import numpy as np
 from repro_torch.launch import scope
 from repro_torch.mset import SPRTParams, estimate, sprt, train
 from repro_torch.tpss import TPSSParams, synthesize
+from torch_fleet_cases import (
+    DISCIPLINES,
+    FAMILIES,
+    GOLDEN,
+    SUBSTEP_GRID,
+    assert_bitexact,
+    assert_equivalent,
+    check_forecaster,
+    check_kernel_steps,
+    check_lattice,
+    fidelity_run,
+    substep_run,
+)
 from torch_parity_data import WELL_POSED, telemetry
 
 pytestmark = pytest.mark.gpu
@@ -188,3 +201,53 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
     (l_cpu, t_cpu), (l_card, t_card) = outs
     assert float((l_card - l_cpu).abs().max()) <= 1e-4 * float(l_cpu.abs().max())
     assert torch.equal(t_card, t_cpu)
+
+
+# ------------------- the fleet simulator's compiled backend -------------------
+# The CPU tests' scenarios (tests/test_torch_fleet_backend.py) on the card, held
+# against the numpy engine at the same bars.
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_fleet_golden_scenario_on_the_card(cuda, name):
+    assert_equivalent(GOLDEN[name](), GOLDEN[name](backend="torch", device=cuda))
+
+
+@pytest.mark.parametrize("disc", DISCIPLINES)
+@pytest.mark.parametrize("n_substeps,preemptive", SUBSTEP_GRID)
+def test_fleet_substep_bit_exact_on_the_card(cuda, disc, n_substeps, preemptive):
+    a = substep_run(disc, n_substeps, preemptive)
+    b = substep_run(disc, n_substeps, preemptive, backend="torch", device=cuda)
+    assert_bitexact(a, b, f"{disc} n={n_substeps} pre={preemptive}")
+
+
+def test_fleet_fidelity_case_preempts_on_the_card(cuda):
+    a, b = fidelity_run(), fidelity_run(backend="torch", device=cuda)
+    assert_bitexact(a, b, "fidelity")
+    assert b.preemptions.sum() > 0
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_fleet_policy_kernel_on_the_card(cuda, family):
+    check_kernel_steps(family, cuda)
+
+
+def test_fleet_forecaster_on_the_card(cuda):
+    check_forecaster(cuda)
+
+
+def test_fleet_lattice_on_the_card(cuda):
+    check_lattice(cuda)
+
+
+def test_fleet_window_sums_add_left_to_right_on_the_card(cuda):
+    from repro_torch.fleet.kernels import seq_sum0
+
+    rng = np.random.default_rng(1)
+    for shape in ((48, 512, 12), (12, 24, 12), (9, 1, 1), (30,), (5, 3)):
+        x = rng.random(shape) * np.exp(rng.normal(0, 6, shape))
+        want = x[0].copy()
+        for row in x[1:]:
+            want = want + row
+        got = seq_sum0(torch.from_numpy(x).to(cuda)).cpu().numpy()
+        assert np.array_equal(got, want), shape
