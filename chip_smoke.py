@@ -5,10 +5,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
-2. build: both kernels, ``kernels/similarity/csrc/similarity.cu`` and
-   ``kernels/attention/csrc/flash.cu`` (each with the shared ``kernels/csrc/hopper.cuh``),
-   one nvcc each, started together; ptxas's registers and spills for each instance
-   (none may spill);
+2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
+   ``kernels/attention/csrc/flash.cu`` (each with the shared ``kernels/csrc/hopper.cuh``)
+   and ``kernels/sprt/csrc/sprt.cu``, one nvcc each, started together; ptxas's registers
+   and spills for each instance (none may spill);
 3. the similarity kernel against its plain version on the card: tests/test_kernels.py's
    sweep plus ragged shapes (n of 1, 3 and 1000; m and b off multiples of 64), float32
    and bfloat16, both kinds, each also as sim(x, x); the MSET2 path's shapes on randn
@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero:
 5. the MSET2 path: ContainerStress.run_measured over the "paper" grid and the
    full-width Fig. 8 cell (1024 signals, 8192 memory vectors, 65,536 observations),
    response surface, recommendation over the h100 shapes, SPRT on the full-width
-   residuals, the full-width cell split by step, and the launch counts;
+   residuals (the SPRT kernel), the launch counts; then the SPRT kernel against its
+   plain version, bit for bit, on those residuals and at ragged sizes (n off multiples
+   of 32, T = 1, no mean, a NaN residual), timed beside the plain loop and the bound;
+   and the full-width cell split by step;
 6. the flash-attention kernel against its plain version: tests/test_kernels.py's
    shapes plus ragged S (1, 65, 129 at every head dim), GQA, heads-major strides,
    large logits (q x 8) and a structured case (q = 0, V[j, d] = j + d / 1000) that
@@ -38,19 +41,26 @@ Phases, in order; any failure exits non-zero:
 9. correctness of that path: decode after prefill(x[:-1]) equals prefill(x) at full
    width in float32, and the smoke config's logits and greedy tokens on the card
    equal those on the CPU;
-10. the fleet simulator's compiled backend (``backend="torch"``) against the numpy
-    engine: window-sum order; the golden scenarios of tests/test_jax_backend.py at its
-    bar and the substep grid bit for bit; every policy kernel step by step; the tuning
-    round at 24 and 512 candidates x 12 seeds x 720 bins, cold and warm, with its peak
-    memory, fixed rows against numpy, and launches per bin from torch.profiler; the
-    substep cell and the fidelity case bit for bit; then one JSON line of its numbers;
-11. one JSON line describing each kernel;
-12. last line: ``{"ok": true, "device": {...}}``.
+10. the fleet simulator's compiled backend (``backend="torch"``, its bin loop a CUDA
+    graph) against the numpy engine: window-sum order; the golden scenarios of
+    tests/test_jax_backend.py at its bar and the substep grid bit for bit; every policy
+    kernel step by step; a graph replayed on another slate of its signature; the
+    tuning round at 24 and 512 candidates x 12 seeds x 720 bins, cold (the eager
+    loop), capture (the second dispatch) and warm (replays) beside numpy, with its
+    peak memory and fixed rows against numpy; kernels a bin from torch.profiler; the
+    substep cell and the fidelity case bit for bit, cold, capture, warm and numpy; then
+    one JSON line of its numbers;
+11. the paper's scoping example, ``examples/torch_scope_containers.py``'s ``main()``:
+    measured scoping over its grid, the surface's r^2, and both customers' rankings
+    over the v5e and h100 shapes; then one JSON line of it;
+12. one JSON line describing each kernel;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
 
 import importlib
+import importlib.util
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -123,10 +133,24 @@ FLEET_LATTICES = (
 )
 FLEET_SUBSTEP_CELL = (8, 8, 720.0)  # sim_perf.py's SUBSTEP_CELL: n_substeps 4, preemptive
 FLEET_FIDELITY = (600.0, 4)  # sim_perf.py's fidelity workload: seconds at dt 2 s, seeds
-FLEET_WARM = 2  # warm dispatches timed after the cold one (cut from 3 to fit the run's time)
-# Dispatches counted under torch.profiler, each at two lengths so that the count a bin
-# is the difference (set-up and output copies cancel): (candidates, seeds, seconds).
+FLEET_WARM = 3  # warm dispatches (graph replays) timed after the cold one and the capture
+# Bin loops counted under torch.profiler, each at two lengths so that the count a bin
+# is the difference (set-up cancels): (candidates, seeds, seconds).
 FLEET_PROFILE = {"coarse": (24, 12, (150.0, 300.0)), "substep": (8, 12, (25.0, 50.0))}
+
+
+# The SPRT kernel beside its plain version: (T, n, with mu, NaN at) off the full-width
+# residuals' shape: n off multiples of 32, one step, one signal, no mean, a NaN residual.
+SPRT_RAGGED = [
+    (1, 1024, True, None),
+    (4099, 1000, False, None),
+    (777, 33, True, None),
+    (300, 1, False, None),
+    (2049, 65, True, (700, 3)),
+]
+# float32 operations an element: divide, two products, two subtractions, two sums, two
+# clamps, two comparisons (and the mean's subtraction)
+SPRT_OPS = 11
 
 
 class SmokeFailure(RuntimeError):
@@ -386,6 +410,84 @@ def numpy_telemetry(seed, p):
     return synthesize_from_draws(draws, p)
 
 
+def sprt_bound(T, n, with_mu):
+    """Least time for the SPRT over (T, n) residuals: each residual read once (and sigma,
+    mu), the alarm byte and both float32 LLRs written once, against SPRT_OPS float32
+    operations an element at the CUDA cores' rate, whichever is longer."""
+    t_bytes = ((4 + 1 + 8) * T * n + 4 * n * (2 if with_mu else 1)) / HBM_BYTES_PER_S
+    t_ops = (SPRT_OPS + with_mu) * T * n / F32_FLOPS
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def check_sprt(r, sigma, mu, p):
+    """The SPRT kernel against its plain version on the same card inputs: (alarms
+    identical, LLRs bit for bit with NaN where the plain version has one, max |kernel -
+    plain| over the LLRs with NaN = NaN counted as 0)."""
+    from repro_torch.kernels import sprt_scan
+
+    kw = dict(m_shift=p.m_shift, upper=p.upper, lower=p.lower)
+    got = sprt_scan(r, sigma, mu, **kw, impl="cuda")
+    want = sprt_scan(r, sigma, mu, **kw, impl="ref")
+    same_alarms = torch.equal(got[0], want[0])
+    bits = all(
+        x.stride() == y.stride() and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(got[1:], want[1:])
+    )
+    err = max(
+        float(torch.where(x.isnan() & y.isnan(), 0.0, (x - y).abs()).max())
+        for x, y in zip(got[1:], want[1:])
+    )
+    return same_alarms, bits, err
+
+
+def sprt_phase(dev, card, residuals, sigma, mu):
+    """Phase 5, after the main path: the SPRT kernel against its plain version on the
+    full-width residuals and at ragged sizes, and its timing. Returns its record."""
+    from repro_torch.kernels import sprt_scan
+    from repro_torch.mset import SPRTParams
+
+    print(f"  the SPRT kernel against its plain version ({card}):")
+    p = SPRTParams()
+    cases = [(tuple(residuals.shape), True, None, residuals, sigma, mu)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    for T, n, with_mu, nan_at in SPRT_RAGGED:
+        r = torch.randn(T, n, generator=g, device=dev)
+        r[T // 2 :, n // 2] += 3.0  # a shift to alarm on
+        if nan_at is not None:
+            r[nan_at] = float("nan")
+        s = 0.8 + 0.4 * torch.rand(n, generator=g, device=dev)
+        m = 0.1 * torch.randn(n, generator=g, device=dev) if with_mu else None
+        cases.append(((T, n), with_mu, nan_at, r, s, m))
+    max_err = 0.0
+    for shape, with_mu, nan_at, r, s, m in cases:
+        same_alarms, bits, err = check_sprt(r, s, m, p)
+        max_err = max(max_err, err)
+        print(
+            f"    {shape} mu={with_mu!s:5s} NaN at {nan_at}: alarms identical {same_alarms}, "
+            f"LLRs bit for bit {bits}, max |kernel - plain| {err:.1e}"
+        )
+        expect(same_alarms and bits and err == 0.0, f"SPRT kernel disagrees at {shape}")
+    kw = dict(m_shift=p.m_shift, upper=p.upper, lower=p.lower)
+    T, n = residuals.shape
+    ms = cuda_ms(lambda: sprt_scan(residuals, sigma, mu, **kw, impl="cuda"), 20)
+    plain_ms = cuda_ms(lambda: sprt_scan(residuals, sigma, mu, **kw, impl="ref"), 1, 0)
+    bound_ms, bound_by = sprt_bound(T, n, True)
+    print(
+        f"    full width {T}x{n}: kernel {ms:.3f} ms, plain loop {plain_ms:.1f} ms "
+        f"({plain_ms / ms:.0f}x the kernel's time), bound {bound_ms:.3f} ms ({bound_by}), "
+        f"kernel at {bound_ms / ms:.1%} of bound ({card})"
+    )
+    return dict(
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        library_ms=None,
+        max_abs_err=max_err,
+        shape=f"residuals {T}x{n} float32, sigma and mu ({n},)",
+    )
+
+
 def flash_kernel_phases(dev, card):
     """Phases 6 and 7: flash attention against its plain version, then timed at the
     serving shape and at prefill_32k's sequence. Returns the timings by shape."""
@@ -606,6 +708,38 @@ def profile_counts(fn):
     return kernels, copies, syncs, busy_us / wall_us
 
 
+def timed_dispatches(fn, warm=FLEET_WARM):
+    """Host-clock seconds of a call of ``fn`` (the cold dispatch: the eager loop), of
+    a second (the capture and a replay) and of ``warm`` more (replays), each ended by
+    a synchronize; and the first and last calls' results."""
+    times, outs = [], []
+    for _ in range(2 + warm):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del outs[1:-1]
+    return times, outs[0], outs[-1]
+
+
+def same_outputs(a, b):
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def dispatch_times(item):
+    """One line of a fleet case's times: cold, capture, warm and (where measured)
+    numpy, with the warm dispatch's speed-ups (its best of the warm runs)."""
+    warm = min(item["warm_s"])
+    text = (
+        f"cold {item['cold_s']:.3f} s (the eager loop, {item['cold_s'] / warm:.1f}x the "
+        f"warm time), capture {item['capture_s']:.3f} s (capture + replay), warm "
+        f"{', '.join(f'{t:.3f}' for t in item['warm_s'])} s (replays)"
+    )
+    if "numpy_s" in item:
+        text += f", numpy {item['numpy_s']:.3f} s ({item['numpy_s'] / warm:.1f}x the warm time)"
+    return text
+
+
 def fleet_phase(dev, card):
     """Phase 10: the fleet simulator's compiled backend (``backend="torch"``) on the
     card against the port's numpy engine. Returns the fleet JSON record."""
@@ -619,6 +753,7 @@ def fleet_phase(dev, card):
         check_forecaster,
         check_kernel_steps,
         check_lattice,
+        check_replay,
         coarse_gap,
         fidelity_run,
         flash_slate,
@@ -678,24 +813,32 @@ def fleet_phase(dev, card):
         checked(f"policy kernel {family}", check_kernel_steps, family, dev)
     checked("forecaster", check_forecaster, dev)
     checked("lattice", check_lattice, dev)
-    print(f"  policy kernels {FAMILIES}, the forecaster and a tiled lattice: identical to numpy")
+    checked("graph replay", check_replay, dev)
+    print(
+        f"  policy kernels {FAMILIES}, the forecaster and a tiled lattice: identical to numpy; "
+        "a graph replayed on another slate of its signature (other knobs, arrivals and "
+        "cold-start jitter) at the coarse bar"
+    )
     rec["golden_max_abs_err"] = golden
     print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
 
-    # 2. The tuning round at the size users race.
+    # 2. The tuning round at the size users race: the first dispatch of a signature
+    #    runs the loop eagerly (cold), the second captures it and replays the graph,
+    #    the next ones replay it (warm); beside them numpy.
     lattices = []
     for n, seeds, duration, tile, rows in FLEET_LATTICES:
+        # free the earlier graphs' memory; policy kernels are cached by make_kernel, so
+        # no kernel's id() is reused
+        torchsim.clear_compiled()
         wl, fleet, params, ctx = flash_slate(n, n_seeds=seeds, duration=duration)
         pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
         kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
         torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(1 + FLEET_WARM):
-            t0 = time.perf_counter()
-            out = torchsim.run_dynamics(kernel, **kw, tile=tile, device=dev)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        times, eager, out = timed_dispatches(
+            lambda: torchsim.run_dynamics(kernel, **kw, tile=tile, device=dev)
+        )
         peak = torch.cuda.max_memory_allocated()
+        expect(same_outputs(eager, out), f"lattice {n}: the graph's outputs differ from eager")
         sims = torchsim.slate_results(
             wl, fleet, [pols[i] for i in rows], {k: v[list(rows)] for k, v in out.items()}
         )
@@ -706,8 +849,15 @@ def fleet_phase(dev, card):
             errs.append(err)
             expect(ok, f"lattice {n}: candidate {i} misses the coarse bar against numpy")
         item = dict(
-            candidates=n, seeds=seeds, bins=wl.n_bins, tile=tile, cold_s=times[0],
-            warm_s=times[1:], peak_gib=peak / 2**30, rows_checked=list(rows),
+            candidates=n,
+            seeds=seeds,
+            bins=wl.n_bins,
+            tile=tile,
+            cold_s=times[0],
+            capture_s=times[1],
+            warm_s=times[2:],
+            peak_gib=peak / 2**30,
+            rows_checked=list(rows),
             max_abs_err=max(errs),
         )
         if n == FLEET_LATTICES[0][0]:
@@ -717,18 +867,18 @@ def fleet_phase(dev, card):
             item["numpy_s"] = time.perf_counter() - t0
         lattices.append(item)
         print(
-            f"  lattice {n} x {seeds} x {wl.n_bins} bins (tile {tile}): cold {times[0]:.3f} s, "
-            f"warm {', '.join(f'{t:.3f}' for t in times[1:])} s, peak {peak / 2**30:.3f} GiB; "
-            f"rows {rows} at the coarse bar, max |torch - numpy| {max(errs):.3e}"
-            + (f"; numpy over the slate {item['numpy_s']:.3f} s" if "numpy_s" in item else "")
+            f"  lattice {n} x {seeds} x {wl.n_bins} bins (tile {tile}): "
+            + dispatch_times(item)
+            + f"; peak {peak / 2**30:.3f} GiB; eager outputs identical; rows {rows} at the "
+            f"coarse bar, max |torch - numpy| {max(errs):.3e} ({card})"
         )
-        del out, sims
+        del out, eager, sims
     rec["lattices"] = lattices
     print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
 
-    # Launches a bin and host synchronisations, from torch.profiler over one dispatch
-    # at each of two lengths: the loop queues work and never waits for the card, so
-    # the synchronisations (the output copies at the end) do not grow with the bins.
+    # Kernels a bin (the graph's nodes) and host synchronisations, from torch.profiler
+    # over the eager loop at two lengths: the loop never waits for the card, which is
+    # what lets it be captured. Then the card's busy share over a warm dispatch.
     launches = {}
     for label, (n, seeds, durations) in FLEET_PROFILE.items():
         sub = dict(n_substeps=4, preemptive=True) if label == "substep" else {}
@@ -737,14 +887,25 @@ def fleet_phase(dev, card):
             wl, fleet, params, ctx = flash_slate(n, n_seeds=seeds, duration=duration)
             pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
             kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
-            torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
-            kernels, copies, syncs, busy = profile_counts(
-                lambda: torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
-            )
+            statics, args = torchsim.core_inputs(**kw, **sub, n_pad=torchsim._pad_pow2(n))
+            core = torchsim._build_core(kernel, **statics)
+            inputs = torchsim.to_device(args, dev)
+
+            def eager():
+                with torch.no_grad():
+                    core(*inputs)
+
+            eager()  # warm-up
+            kernels, copies, syncs, busy = profile_counts(eager)
             counts.append((wl.n_bins, sum(kernels.values()), copies, syncs, kernels, busy))
         (b0, k0, c0, s0, _, _), (b1, k1, c1, s1, by_name, busy) = counts
-        expect(k1 > k0 > 0, f"torch.profiler saw no kernels in the {label} dispatches")
+        expect(k1 > k0 > 0, f"torch.profiler saw no kernels in the {label} loops")
         expect(s1 == s0, f"host synchronisations grow with the bins in the {label} loop")
+        for _ in range(2):  # the eager loop, then the capture
+            torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
+        g_kernels, _, g_syncs, g_busy = profile_counts(
+            lambda: torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
+        )
         per_bin = (k1 - k0) / (b1 - b0)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         launches[label] = dict(
@@ -754,13 +915,19 @@ def fleet_phase(dev, card):
             host_syncs=[s0, s1],
             kernels_per_bin=per_bin,
             top_kernels_per_bin={k: v / b1 for k, v in top},
-            device_busy_share=busy,
+            eager_busy_share=busy,
+            graph_kernels=sum(g_kernels.values()),
+            graph_host_syncs=g_syncs,
+            graph_busy_share=g_busy if g_kernels else None,
         )
         print(
-            f"  {label} dispatch, {n} candidates x {seeds} seeds x {b0} / {b1} bins: "
-            f"{k0} / {k1} kernel launches ({per_bin:.1f} a bin), {c0} / {c1} copies and "
-            f"memsets, {s0} / {s1} host synchronisations; kernels busy the card "
-            f"{busy:.1%} of the {b1}-bin dispatch's wall time under the profiler"
+            f"  {label} loop, {n} candidates x {seeds} seeds x {b0} / {b1} bins: "
+            f"{k0} / {k1} kernels ({per_bin:.1f} a bin), {c0} / {c1} copies and memsets, "
+            f"{s0} / {s1} host synchronisations; run eagerly, kernels busy the card "
+            f"{busy:.1%} of its wall time under the profiler; as a warm dispatch (graph "
+            f"replay, input and output copies) {sum(g_kernels.values())} kernels, "
+            + (f"busy {g_busy:.1%}" if g_kernels else "busy share not measured")
+            + f" ({card})"
         )
         print("    most launched a bin: " + ", ".join(f"{k[:40]} {v / b1:.1f}" for k, v in top))
     rec["launches"] = launches
@@ -768,14 +935,16 @@ def fleet_phase(dev, card):
 
     # 3. The substep engine: sim_perf.py's SUBSTEP_CELL, and its fidelity workload
     #    under preemptive EDF, each on the card against numpy, bit for bit.
+    torchsim.clear_compiled()
     n, seeds, duration = FLEET_SUBSTEP_CELL
     sub = dict(n_substeps=4, preemptive=True)
     wl, fleet, params, ctx = flash_slate(n, n_seeds=seeds, duration=duration)
     pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
     kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
-    t0 = time.perf_counter()
-    out = torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
-    torch_s = time.perf_counter() - t0
+    times, eager, out = timed_dispatches(
+        lambda: torchsim.run_dynamics(kernel, **kw, **sub, device=dev)
+    )
+    expect(same_outputs(eager, out), "substep cell: the graph's outputs differ from eager")
     sims = torchsim.slate_results(wl, fleet, pols, out, **sub)
     t0 = time.perf_counter()
     refs = [
@@ -791,21 +960,23 @@ def fleet_phase(dev, card):
         bins=wl.n_bins,
         n_substeps=4,
         preemptive=True,
-        torch_s=torch_s,
+        cold_s=times[0],
+        capture_s=times[1],
+        warm_s=times[2:],
         numpy_s=numpy_s,
         bit_exact=True,
     )
     print(
-        f"  substep cell {n} x {seeds} x {wl.n_bins} bins, n_substeps 4, preemptive: one "
-        f"dispatch {torch_s:.3f} s, numpy {numpy_s:.3f} s; all {n} bit-exact"
+        f"  substep cell {n} x {seeds} x {wl.n_bins} bins, n_substeps 4, preemptive: "
+        + dispatch_times(rec["substep_cell"])
+        + f"; all {n} bit-exact ({card})"
     )
     t0 = time.perf_counter()
     ref = fidelity_run(*FLEET_FIDELITY)
     numpy_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sim = fidelity_run(*FLEET_FIDELITY, **on_card)
-    torch_s = time.perf_counter() - t0
+    times, eager, sim = timed_dispatches(lambda: fidelity_run(*FLEET_FIDELITY, **on_card))
     same, err = bit_gap(ref, sim)
+    expect(bit_gap(eager, sim)[0], "fidelity case: the graph's result differs from eager")
     n_pre = float(sim.preemptions.sum())
     expect(same, f"fidelity case not bit-exact ({err:.3e})")
     expect(n_pre > 0, "the fidelity case never preempted")
@@ -813,20 +984,49 @@ def fleet_phase(dev, card):
         bins=sim.served.shape[1],
         seeds=sim.served.shape[0],
         classes=len(sim.classes),
-        torch_s=torch_s,
+        cold_s=times[0],
+        capture_s=times[1],
+        warm_s=times[2:],
         numpy_s=numpy_s,
         preemptions=n_pre,
         bit_exact=True,
     )
     print(
         f"  fidelity (tiered-SLA, EDF, preemptive, {sim.served.shape[0]} seeds x "
-        f"{sim.served.shape[1]} bins): simulate {torch_s:.3f} s on the card, numpy "
-        f"{numpy_s:.3f} s, {n_pre:.0f} preemptions, bit-exact"
+        f"{sim.served.shape[1]} bins), each a simulate call: "
+        + dispatch_times(rec["fidelity"])
+        + f"; {n_pre:.0f} preemptions, bit-exact ({card})"
     )
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  the fleet phase took {rec['phase_s']:.1f} s")
+    torchsim.clear_compiled()
     torch.cuda.empty_cache()
     return rec
+
+
+def example_phase(dev, card, counted):
+    """Phase 11: ``examples/torch_scope_containers.py``'s ``main()`` on the card, with
+    the kernels' counts set to 0 just before it and read just after. Returns its record."""
+    print(f"== 11. the paper's scoping example on {card}")
+    path = os.path.join(ROOT, "examples", "torch_scope_containers.py")
+    spec = importlib.util.spec_from_file_location("torch_scope_containers", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for module in counted.values():
+        module.launches = 0
+    t0 = time.perf_counter()
+    surf, rec_a, rec_b = example.main(dev)
+    seconds = time.perf_counter() - t0
+    launches = {name: module.launches for name, module in counted.items()}
+    print(f"  kernel launches during the example: {launches}; it took {seconds:.1f} s")
+    expect(launches["similarity"] > 0, "the example never launched the similarity kernel")
+    expect(np.isfinite(surf.r2), "the example's response surface is not finite")
+    record = dict(card=card, seconds=seconds, surface_r2=surf.r2, launches=launches)
+    for label, rec in (("customer_a", rec_a), ("customer_b", rec_b)):
+        expect(rec.shape is not None, f"no shape for {label}")
+        record[label] = dict(shape=rec.shape.name, ranking=rec.ranking)
+        print(f"  {label}: {rec.shape.name} ({rec.reason}); r^2 of the surface {surf.r2:.4f}")
+    return record
 
 
 def main():
@@ -849,6 +1049,7 @@ def main():
     from repro_torch.tpss import TPSSParams, synthesize
 
     sim_module = importlib.import_module("repro_torch.kernels.similarity.similarity")
+    sprt_module = importlib.import_module("repro_torch.kernels.sprt.sprt")
     f32_matmul_highest()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -863,11 +1064,12 @@ def main():
     # --------------------------------------------------------------- 2. build
     print("== 2. build")
     flash_module = importlib.import_module("repro_torch.kernels.attention.flash")
+    modules = {"similarity": sim_module, "flash attention": flash_module, "sprt": sprt_module}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc for each source, started together
-        builds = list(pool.map(_build.build, (sim_module.SOURCE, flash_module.SOURCE)))
-    print(f"both kernels built in {time.perf_counter() - t0:.2f} s of wall time")
-    for name, built in zip(("similarity", "flash attention"), builds):
+    with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc for each source, started together
+        builds = list(pool.map(_build.build, (m.SOURCE for m in modules.values())))
+    print(f"the {len(builds)} kernels built in {time.perf_counter() - t0:.2f} s of wall time")
+    for name, built in zip(modules, builds):
         print(f"{name}: {built.library.name}, nvcc {built.seconds:.2f} s (cached={built.cached})")
         report = ptxas_report(built.log)
         expect(built.cached or report, f"no ptxas report for {name}")
@@ -1017,7 +1219,7 @@ def main():
 
     # ----------------------------------------------------------- 5. main path
     print(f"== 5. the MSET2 path on {card}")
-    sim_module.launches = 0
+    sim_module.launches = sprt_module.launches = 0
     res, surf = run_mset("paper", reps=2, device=dev, verbose=False)
     torch.cuda.reset_peak_memory_stats()
     captured = {}
@@ -1043,9 +1245,10 @@ def main():
     alarms, _, _ = sprt(residuals, sigma, SPRTParams(), mu=mu)
     torch.cuda.synchronize()
     sprt_s = time.perf_counter() - t0
-    launches = sim_module.launches
-    print(f"  similarity kernel launches during the main path: {launches}")
+    launches, sprt_launches = sim_module.launches, sprt_module.launches
+    print(f"  kernel launches during the main path: similarity {launches}, SPRT {sprt_launches}")
     expect(launches > 0, "the main path never launched the similarity kernel")
+    expect(sprt_launches > 0, "the main path never launched the SPRT kernel")
 
     for r in res.rows + full.rows:
         print(f"  {card} | {r.params} | {r.mean_s:.6f} s (std {r.std_s:.6f}, {r.reps} reps)")
@@ -1056,8 +1259,12 @@ def main():
     expect(residuals.shape == shape, f"full-width residuals have shape {tuple(residuals.shape)}")
     expect(bool(torch.isfinite(residuals).all()), "full-width residuals are not finite")
     far = float(empirical_false_alarm_rate(alarms[n_cal:]))
-    print(f"  SPRT over {tuple(residuals.shape)} residuals: {sprt_s:.3f} s, alarm rate {far:.2e}")
+    print(
+        f"  SPRT over {tuple(residuals.shape)} residuals: {sprt_s:.4f} s (host clock, one "
+        f"call), alarm rate {far:.2e}"
+    )
     expect(alarms.shape == residuals.shape and np.isfinite(far), "SPRT output malformed")
+    sprt_timing = sprt_phase(dev, card, residuals, sigma, mu)
 
     # Recommendation: the full-width workload's observations arrive over a 60 s
     # window and must be trained on and surveilled within it; the stream splits
@@ -1125,7 +1332,11 @@ def main():
     fleet = fleet_phase(dev, card)
     print(json.dumps({"fleet": fleet}))
 
-    # ----------------------------------------------------------- 11. kernels
+    # ------------------------------------------------------------ 11. example
+    counted = {"similarity": sim_module, "flash_attention": flash_module, "sprt": sprt_module}
+    print(json.dumps({"example": example_phase(dev, card, counted)}))
+
+    # ----------------------------------------------------------- 12. kernels
     t = timings["surveil"]
     train_shape = "x = y {0}x{2}, float32 (G = sim(D, D))".format(*TRAIN_SHAPE)
     kernels = [
@@ -1159,6 +1370,14 @@ def main():
             "max_abs_err": max(t["max_abs_err"] for t in flash_timings.values()),
             "prefill_32k": flash_timings["prefill_32k"],
             "serve_f32": flash_timings["serve_f32"],
+        },
+        {
+            "name": "sprt",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/sprt/csrc/sprt.cu",
+            "replaces": "src/repro/mset/sprt.py:44",
+            "launches": sprt_launches,
+            **sprt_timing,
         },
     ]
     print(json.dumps({"kernels": kernels}))

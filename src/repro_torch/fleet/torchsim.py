@@ -23,8 +23,17 @@ fixed-shape tensor arithmetic over every candidate and seed at once:
 
 The loop never synchronises with the host: no ``.item()``, no ``.cpu()``, no
 Python branch on a tensor's value, so it queues work as ``lax.scan`` did and
-the host reads the outputs once, at the end. A round is a few hundred kernel
-launches per bin (``chip_smoke.py`` counts them).
+the host reads the outputs once, at the end. A round is a few hundred small
+kernels a bin (``chip_smoke.py`` counts them), too many to launch one by one
+from Python, so on a card a configuration that dispatches again is captured
+once as a CUDA graph (the counterpart of XLA compiling the scan) and replayed.
+The first dispatch of a signature runs the loop eagerly, so a one-shot call
+pays no capture; the second captures the loop (the first was the warm-up a
+capture needs) and replays it; later ones copy their inputs into the graph's
+static tensors and replay it. Anything that varies between dispatches of one
+signature is a tensor input, never a value baked in at capture. Each graph
+keeps a private memory pool, so only the ``_MAX_GRAPHS`` most recently used
+are kept. On the CPU the loop runs eagerly.
 
 Everything is float64 and matches the numpy engine's operation order: bit for
 bit on the substep core, and to float rounding on the coarse core, whose numpy
@@ -32,20 +41,24 @@ pour loop differs from the bisect by construction. Short sums over classes and
 pools are explicit adds in numpy's order, window sums go through
 ``kernels.seq_sum0``, and no tensor is divided by a Python number (CUDA would
 multiply by the reciprocal). With a single seed numpy sums a forecast window
-pairwise rather than left to right, so that case can differ by an ulp.
+pairwise rather than left to right, and ``kernels._window_sum`` follows it.
 
 Candidate batches are padded to the next power of two (padding replays
 candidate 0) and ``tile`` streams wide slates through fixed-width chunks, as in
-the reference. XLA's compilation cache has no counterpart here: eager torch
-compiles nothing, so ``enable_persistent_compile_cache``, ``clear_compiled``
-and ``persistent_cache_stats`` are not ported. A shape's first dispatch is
-still labelled ``cold`` in the ``torchsim.dispatch`` span and counters (it
-pays CUDA's lazy module loading), later ones ``warm``.
+the reference, so every tile of a slate shares one graph. ``clear_compiled``
+evicts the captured graphs, as the reference's evicts its compiled programs.
+XLA's persistent compilation cache has no counterpart: a CUDA graph lives in
+its process, so ``enable_persistent_compile_cache`` and
+``persistent_cache_stats`` are not ported. A signature's first dispatch is
+labelled ``cold`` in the ``torchsim.dispatch`` span and counters, later ones
+``warm``; the span's ``path`` says how it ran (``eager``, ``capture`` or
+``replay``).
 """
 
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -469,12 +482,13 @@ def run_dynamics(
     of candidates. Results are identical to the untiled dispatch.
 
     ``device`` is where the loop runs: ``None`` means the card (raising when
-    there is none), ``"cpu"`` the CPU.
+    there is none), ``"cpu"`` the CPU. On a card a signature's first dispatch
+    (``cold``) runs the loop eagerly and later ones replay it as a CUDA graph
+    (module docstring).
     """
     dev = resolve_device(device)
     arrivals = np.asarray(arrivals, np.float64)
-    S, T, C = arrivals.shape
-    P = len(order)
+    S, T, _ = arrivals.shape
     N = len(min_rep)
     if tile is not None:
         tile_w = _pad_pow2(int(tile))
@@ -517,17 +531,91 @@ def run_dynamics(
             telemetry.counter("torchsim_tiles_total", n_tiles)
             return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
     Npad = _pad_pow2(N) if _pad_to is None else int(_pad_to)
+    t0 = time.perf_counter()
+    statics, args = core_inputs(
+        arrivals=arrivals,
+        jb=jb,
+        dt=dt,
+        order=order,
+        t_fixed=t_fixed,
+        t_unit=t_unit,
+        max_b=max_b,
+        max_queue=max_queue,
+        tables=tables,
+        kp=kp,
+        min_rep=min_rep,
+        max_rep=max_rep,
+        init_ready=init_ready,
+        max_cold_bins=max_cold_bins,
+        tput=tput,
+        n_substeps=n_substeps,
+        preemptive=preemptive,
+        n_pad=Npad,
+    )
+    sig = (id(kernel), tuple(sorted(statics.items())), Npad, S, str(dev))
+    kind = "warm" if sig in _DISPATCHED else "cold"
+    if dev.type != "cuda" or kind == "cold":
+        path = "eager"
+    else:
+        path = "replay" if sig in _GRAPHS else "capture"
+    attrs = dict(kind=kind, path=path, candidates=N, padded=Npad, seeds=S, bins=T)
+    if _tile_idx is not None:
+        attrs.update(tile=_tile_idx[0], n_tiles=_tile_idx[1])
+    with telemetry.span("torchsim.dispatch", **attrs), torch.no_grad():
+        if path == "eager":
+            out = _build_core(kernel, **statics)(*to_device(args, dev))
+        else:
+            graph = _cached(sig) if path == "replay" else _capture(sig, kernel, statics, args, dev)
+            out = graph.replay(args)
+        out = {k: v[:N].cpu().numpy() for k, v in out.items()}  # waits for the card
+    _DISPATCHED.add(sig)
+    telemetry.counter("torchsim_dispatch_total", kind=kind)
+    telemetry.counter("torchsim_dispatch_seconds_total", time.perf_counter() - t0, kind=kind)
+    return out
+
+
+def core_inputs(
+    *,
+    arrivals,
+    jb,
+    dt,
+    order,
+    t_fixed,
+    t_unit,
+    max_b,
+    max_queue,
+    tables,
+    kp,
+    min_rep,
+    max_rep,
+    init_ready,
+    max_cold_bins,
+    tput=(),
+    n_substeps: int = 1,
+    preemptive: bool = False,
+    n_pad: int,
+):
+    """The static configuration of :func:`_build_core` and the bin loop's tensor
+    arguments, on the CPU, for a batch padded to ``n_pad`` candidates (padding
+    replays candidate 0). Everything that varies between dispatches of one
+    configuration is a tensor here, so a captured graph replays it."""
+    arrivals = np.asarray(arrivals, np.float64)
+    S, T, C = arrivals.shape
+    N = len(min_rep)
 
     def pad(a, dtype):
         a = np.asarray(a)
-        if Npad != N:
-            a = np.concatenate([a, np.repeat(a[:1], Npad - N, axis=0)], axis=0)
-        return torch.as_tensor(a.astype(dtype), device=dev)
+        if n_pad != N:
+            a = np.concatenate([a, np.repeat(a[:1], n_pad - N, axis=0)], axis=0)
+        return torch.from_numpy(np.ascontiguousarray(a, dtype))
+
+    def f64(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float64))
 
     statics = dict(
         T=T,
         C=C,
-        P=P,
+        P=len(order),
         Tpad=T + max_cold_bins + 2,
         W=max_cold_bins + 1,
         dt=float(dt),
@@ -540,46 +628,110 @@ def run_dynamics(
         preemptive=bool(preemptive),
         tput=tuple(float(v) for v in tput),
     )
-    core = _build_core(kernel, **statics)
     # host-side divisions: the policy ceil()s must see the exact IEEE
     # quotients the numpy reference sees
-    rate = arrivals / float(dt)
     arr_tot = arrivals.sum(axis=2)
-    rate_sum = arr_tot / float(dt)
-    sig = (id(kernel), tuple(sorted(statics.items())), Npad, S, str(dev))
-    kind = "warm" if sig in _DISPATCHED else "cold"
-    attrs = dict(kind=kind, candidates=N, padded=Npad, seeds=S, bins=T)
-    if _tile_idx is not None:
-        attrs.update(tile=_tile_idx[0], n_tiles=_tile_idx[1])
-    t0 = time.perf_counter()
-    with telemetry.span("torchsim.dispatch", **attrs):
+    args = (
+        f64(arrivals),
+        f64(arr_tot),
+        f64(arrivals / float(dt)),
+        f64(arr_tot / float(dt)),
+        torch.from_numpy(np.ascontiguousarray(jb, np.int64)),
+        pad(tables["cnt"], np.int64),
+        pad(tables["cls_of_rank"], np.int64),
+        pad(tables["drop_rank"], np.int64),
+        pad(tables["key_of_rank"], np.float64),
+        {k: pad(v, np.float64)[:, None] for k, v in kp.items()},
+        pad(min_rep, np.float64)[:, None, :],
+        pad(max_rep, np.float64)[:, None, :],
+        pad(init_ready, np.float64)[:, None, :],
+    )
+    return statics, args
 
-        def dev_f64(a):
-            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
-        with torch.no_grad():
-            out = core(
-                dev_f64(arrivals),
-                dev_f64(arr_tot),
-                dev_f64(rate),
-                dev_f64(rate_sum),
-                torch.as_tensor(np.asarray(jb, np.int64), device=dev),
-                pad(tables["cnt"], np.int64),
-                pad(tables["cls_of_rank"], np.int64),
-                pad(tables["drop_rank"], np.int64),
-                pad(tables["key_of_rank"], np.float64),
-                {k: pad(v, np.float64)[:, None] for k, v in kp.items()},
-                pad(min_rep, np.float64)[:, None, :],
-                pad(max_rep, np.float64)[:, None, :],
-                pad(init_ready, np.float64)[:, None, :],
-            )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        out = {k: v[:N].cpu().numpy() for k, v in out.items()}
-    _DISPATCHED.add(sig)
-    telemetry.counter("torchsim_dispatch_total", kind=kind)
-    telemetry.counter("torchsim_dispatch_seconds_total", time.perf_counter() - t0, kind=kind)
-    return out
+def _leaves(args):
+    """The tensors of the bin loop's arguments, in a fixed order."""
+    for a in args:
+        if isinstance(a, dict):
+            yield from (a[k] for k in sorted(a))
+        else:
+            yield a
+
+
+def to_device(args, dev):
+    """:func:`core_inputs`' arguments copied to ``dev``."""
+    return tuple(
+        {k: v.to(dev) for k, v in a.items()} if isinstance(a, dict) else a.to(dev) for a in args
+    )
+
+
+class _Graph:
+    """One configuration's bin loop captured as a CUDA graph: its static input
+    tensors, its output tensors (both in the graph's private memory pool) and the
+    policy kernel, held so that its ``id()`` in the signature is not reused while
+    the graph lives."""
+
+    def __init__(self, graph, inputs, outputs, kernel):
+        self.graph, self.inputs, self.outputs, self.kernel = graph, inputs, outputs, kernel
+
+    def replay(self, args):
+        """Copy ``args`` (CPU tensors) into the static inputs and replay the loop;
+        returns the static outputs, valid until the next replay."""
+        for dst, src in zip(_leaves(self.inputs), _leaves(args), strict=True):
+            if dst.shape != src.shape:
+                raise ValueError(f"a {tuple(src.shape)} input for a {tuple(dst.shape)} graph")
+            dst.copy_(src)
+        self.graph.replay()
+        return self.outputs
+
+
+# Signature -> _Graph, least recently used first: the captured bin loops of the
+# configurations dispatched more than once on a card. Each holds a private memory
+# pool (about 1 GiB for a 512-candidate tile of 720 bins), so the cache keeps the
+# _MAX_GRAPHS most recently used and clear_compiled() evicts them all.
+_GRAPHS: OrderedDict = OrderedDict()
+_MAX_GRAPHS = 4
+
+
+def _cached(sig):
+    """The captured graph of ``sig``, now the most recently used."""
+    _GRAPHS.move_to_end(sig)
+    return _GRAPHS[sig]
+
+
+def _keep(sig, graph):
+    """Cache ``graph`` for ``sig``, evicting the least recently used beyond
+    ``_MAX_GRAPHS``."""
+    _GRAPHS[sig] = graph
+    while len(_GRAPHS) > _MAX_GRAPHS:
+        _GRAPHS.popitem(last=False)
+
+
+def _capture(sig, kernel, statics, args, dev):
+    """Second dispatch of ``sig`` on a card: capture the bin loop into a graph
+    over static copies of ``args`` and cache it. The signature's first dispatch
+    ran the loop eagerly, which is the warm-up a capture needs. A capture error
+    raises."""
+    core = _build_core(kernel, **statics)
+    inputs = to_device(args, dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.graph(graph):
+        outputs = core(*inputs)
+    captured = _Graph(graph, inputs, outputs, kernel)
+    _keep(sig, captured)
+    return captured
+
+
+def clear_compiled() -> list:
+    """Evict every captured graph and forget which configurations have dispatched
+    (the next dispatch of each is cold again). Returns the evicted graphs, as the
+    reference returns its evicted cores: a caller timing a cold rebuild holds them
+    until it is done, so that no policy kernel's ``id()`` is reused meanwhile and a
+    new kernel masquerades as dispatched."""
+    evicted = list(_GRAPHS.values())
+    _GRAPHS.clear()
+    _DISPATCHED.clear()
+    return evicted
 
 
 def slate_arguments(

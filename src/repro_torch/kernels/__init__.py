@@ -1,8 +1,11 @@
 # The two places where the JAX package drops to a Pallas TPU kernel, each a
 # hand-written CUDA kernel for Hopper here: the MSET2 similarity operator (the
 # paper's named CUDA kernel, Fig. 3) and flash attention (the LM serving path).
+# Beside them, the port's own kernel: the SPRT recursion, which the JAX package
+# compiles as one lax.scan.
 from repro_torch.kernels.attention import flash_attention_cuda, gqa_attention, mha_ref
 from repro_torch.kernels.similarity import similarity, similarity_cuda, similarity_ref
+from repro_torch.kernels.sprt import sprt_cuda, sprt_ref, sprt_scan
 
 __all__ = [
     "flash_attention_cuda",
@@ -11,4 +14,7 @@ __all__ = [
     "similarity",
     "similarity_cuda",
     "similarity_ref",
+    "sprt_cuda",
+    "sprt_ref",
+    "sprt_scan",
 ]

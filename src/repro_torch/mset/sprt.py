@@ -9,6 +9,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.sprt import sprt_scan
+
 F32 = torch.float32
 
 
@@ -37,32 +39,10 @@ def sprt(residuals, sigma, p: SPRTParams = SPRTParams(), mu=None):
     """residuals: (T, n); sigma/mu: (n,) residual std/mean from clean validation
     data (mu defaults to 0). Returns (alarms (T, n), llr_pos, llr_neg).
 
-    The recursion is a loop over time on the residuals' device, four launches a
-    step, writing straight into the outputs.
+    The recursion is one CUDA kernel for residuals on the card (K3) and the plain
+    loop over time for residuals on the CPU (``kernels.sprt``).
     """
-    r = residuals.float()
-    if mu is not None:
-        r = r - mu[None, :].float()
-    r = r / sigma[None, :].float()
-    M = p.m_shift
-    # log-likelihood ratio increments for H1: mean=+M vs H0: mean=0 (unit var),
-    # stacked (T, 2, n) as [positive, negative]
-    inc = torch.stack([M * r - 0.5 * M * M, -M * r - 0.5 * M * M], dim=1)
-    hi, lo = p.upper, p.lower
-
-    T, n = r.shape
-    llr = torch.empty((T, 2, n), dtype=F32, device=r.device)
-    hit = torch.empty((T, 2, n), dtype=torch.bool, device=r.device)
-    prev = torch.zeros((2, n), dtype=F32, device=r.device)
-    for t in range(T):
-        s = llr[t]
-        torch.add(prev, inc[t], out=s)
-        s.clamp_(min=lo)
-        torch.ge(s, hi, out=hit[t])
-        s.masked_fill_(hit[t], 0.0)  # reset after decision (classic SPRT restart)
-        prev = s
-    alarms = hit[:, 0] | hit[:, 1]
-    return alarms, llr[:, 0], llr[:, 1]
+    return sprt_scan(residuals, sigma, mu, m_shift=p.m_shift, upper=p.upper, lower=p.lower)
 
 
 def empirical_false_alarm_rate(alarms) -> torch.Tensor:

@@ -36,6 +36,7 @@ from torch_fleet_cases import (
     check_forecaster,
     check_kernel_steps,
     check_lattice,
+    check_replay,
     families,
     fidelity_run,
     flash_slate,
@@ -222,9 +223,46 @@ def test_dispatch_span_and_counters():
             simulate(tr, svc, StaticPolicy(3), slo_s=2.0, **CPU)
     kinds = [s.attrs["kind"] for s in tel.tracer.roots if s.name == "torchsim.dispatch"]
     assert kinds == ["cold", "warm"]
+    assert [s.attrs["path"] for s in tel.tracer.roots] == ["eager", "eager"]  # no graph on the CPU
     assert tel.metrics.get("torchsim_dispatch_total", kind="cold").value == 1
     assert tel.metrics.get("torchsim_dispatch_total", kind="warm").value == 1
     assert tel.metrics.get("torchsim_dispatch_seconds_total", kind="warm").value > 0
+
+
+def test_second_slate_of_one_signature_dispatches_warm():
+    check_replay(torch.device("cpu"))
+
+
+def test_clear_compiled_empties_the_dispatch_cache():
+    svc = service()
+    tr = poisson_trace(2 * svc.max_throughput, 100.0, dt_s=5.0, n_seeds=2, seed=5)
+    simulate(tr, svc, StaticPolicy(3), slo_s=2.0, **CPU)
+    graph = object()  # a captured graph's stand-in: the CPU captures none
+    torchsim._GRAPHS["sig"] = graph
+    assert torchsim._DISPATCHED
+    assert torchsim.clear_compiled() == [graph]
+    assert not torchsim._GRAPHS and not torchsim._DISPATCHED
+    with telemetry.session() as tel:
+        simulate(tr, svc, StaticPolicy(3), slo_s=2.0, **CPU)
+    assert [s.attrs["kind"] for s in tel.tracer.roots] == ["cold"]
+
+
+def test_graph_cache_keeps_the_most_recently_used():
+    """A captured graph pins its memory pool, so the cache holds at most
+    ``_MAX_GRAPHS``: inserting more evicts the least recently used, and a replay
+    makes its graph the most recently used."""
+    held = torchsim.clear_compiled()
+    graphs = [object() for _ in range(torchsim._MAX_GRAPHS + 3)]  # the CPU captures none
+    for i, g in enumerate(graphs[: torchsim._MAX_GRAPHS]):
+        torchsim._keep(("sig", i), g)
+    assert torchsim._cached(("sig", 0)) is graphs[0]
+    for i, g in enumerate(graphs[torchsim._MAX_GRAPHS :], start=torchsim._MAX_GRAPHS):
+        torchsim._keep(("sig", i), g)
+        assert len(torchsim._GRAPHS) == torchsim._MAX_GRAPHS
+    kept = {0} | set(range(torchsim._MAX_GRAPHS, len(graphs)))
+    assert set(torchsim._GRAPHS) == {("sig", i) for i in kept}
+    assert torchsim.clear_compiled() == [graphs[i] for i in sorted(kept)]
+    del held
 
 
 def test_forecaster_matches_numpy_value_for_value():

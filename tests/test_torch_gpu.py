@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
+from repro_torch.fleet import PredictivePolicy, torchsim
+from repro_torch.kernels import sprt_scan
 from repro_torch.launch import scope
 from repro_torch.mset import SPRTParams, estimate, sprt, train
 from repro_torch.tpss import TPSSParams, synthesize
@@ -27,7 +29,9 @@ from torch_fleet_cases import (
     check_forecaster,
     check_kernel_steps,
     check_lattice,
+    check_replay,
     fidelity_run,
+    flash_slate,
     substep_run,
 )
 from torch_parity_data import WELL_POSED, telemetry
@@ -76,6 +80,45 @@ def test_sprt_on_the_card_gives_the_cpu_alarms(cuda):
     a, sp, _ = sprt(r.to(cuda), sigma.to(cuda), SPRTParams())
     assert torch.equal(a.cpu(), a_cpu)
     np.testing.assert_allclose(sp.cpu().numpy(), sp_cpu.numpy(), atol=1e-5, rtol=1e-6)
+
+
+sprt_module = importlib.import_module("repro_torch.kernels.sprt.sprt")
+
+
+# (T, n, with mu, NaN at): n off multiples of 32, one step, one signal, a NaN residual
+SPRT_SHAPES = [
+    (3000, 64, True, None),
+    (1, 33, True, None),
+    (257, 1, False, None),
+    (1000, 100, False, None),
+    (2049, 65, True, (700, 3)),
+]
+
+
+@pytest.mark.parametrize("T,n,with_mu,nan_at", SPRT_SHAPES)
+def test_sprt_kernel_equals_the_plain_loop_bit_for_bit(cuda, T, n, with_mu, nan_at):
+    rng = np.random.default_rng(T + n)
+    r = rng.standard_normal((T, n)).astype(np.float32)
+    r[T // 2 :, n // 2] += 3.0  # a shift to alarm on
+    if nan_at is not None:
+        r[nan_at] = np.nan
+    r = torch.from_numpy(r).to(cuda)
+    sigma = torch.from_numpy(rng.uniform(0.8, 1.2, n).astype(np.float32)).to(cuda)
+    mu = torch.from_numpy(rng.uniform(-0.1, 0.1, n).astype(np.float32)).to(cuda)
+    mu = mu if with_mu else None
+    for p in (SPRTParams(), SPRTParams(1e-2, 1e-3, 4.0)):
+        kw = dict(m_shift=p.m_shift, upper=p.upper, lower=p.lower)
+        before = sprt_module.launches
+        a, sp, sn = sprt_scan(r, sigma, mu, **kw)
+        assert sprt_module.launches == before + 1
+        a_ref, sp_ref, sn_ref = sprt_scan(r, sigma, mu, **kw, impl="ref")
+        assert torch.equal(a, a_ref)
+        # bit for bit, NaN where the plain loop has one
+        for x, y in ((sp, sp_ref), (sn, sn_ref)):
+            assert x.stride() == y.stride()
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    if nan_at is not None:
+        assert bool(torch.isnan(sp[nan_at[0] :, nan_at[1]]).all())
 
 
 def test_synthesis_on_the_card(cuda):
@@ -238,6 +281,48 @@ def test_fleet_forecaster_on_the_card(cuda):
 
 def test_fleet_lattice_on_the_card(cuda):
     check_lattice(cuda)
+
+
+def test_fleet_graph_replays_a_second_slate_of_one_signature(cuda):
+    check_replay(cuda)
+    assert len(torchsim._GRAPHS) == 1
+
+
+def test_fleet_graphs_capture_on_the_second_dispatch_and_stay_bounded(cuda, monkeypatch):
+    """A signature's first dispatch runs eagerly and captures nothing; the second
+    captures and replays, equal to the first bit for bit; past ``_MAX_GRAPHS``
+    signatures the least recently used graph is evicted."""
+    monkeypatch.setattr(torchsim, "_MAX_GRAPHS", 2)
+    held = torchsim.clear_compiled()
+    sigs = []
+    for n in (1, 2, 3):  # padded to 1, 2 and 4 candidates: three signatures
+        wl, fleet, params, ctx = flash_slate(n=n, n_seeds=2, duration=300.0)
+        pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
+        kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
+        before = set(torchsim._GRAPHS)
+        eager = torchsim.run_dynamics(kernel, **kw, device=cuda)
+        assert set(torchsim._GRAPHS) == before
+        graph = torchsim.run_dynamics(kernel, **kw, device=cuda)
+        (sig,) = set(torchsim._GRAPHS) - before
+        sigs.append(sig)
+        for k, v in eager.items():
+            assert np.array_equal(v, graph[k]), (n, k)
+        assert len(torchsim._GRAPHS) <= 2
+    assert list(torchsim._GRAPHS) == sigs[1:]
+    del held
+
+
+def test_fleet_tiles_share_one_graph_and_equal_the_untiled_dispatch(cuda):
+    wl, fleet, params, ctx = flash_slate(n=5, n_seeds=3, duration=300.0)
+    pols = [PredictivePolicy.from_params(p, **ctx) for p in params]
+    kernel, kw = torchsim.slate_arguments(wl, fleet, pols)
+    held = torchsim.clear_compiled()
+    tiled = torchsim.run_dynamics(kernel, **kw, tile=2, device=cuda)
+    assert len(torchsim._GRAPHS) == 1  # three tiles of two, one signature
+    untiled = torchsim.run_dynamics(kernel, **kw, device=cuda)
+    for k, v in untiled.items():
+        assert np.array_equal(v, tiled[k]), k
+    del held
 
 
 def test_fleet_window_sums_add_left_to_right_on_the_card(cuda):

@@ -355,6 +355,65 @@ def check_lattice(device):
         assert_equivalent(t_fleet.simulate_fleet(wl, fleet, pol), sim)
 
 
+def replay_slates(pkg=PORT):
+    """Two slates of one dispatch signature that differ in every tensor input the
+    scenario can vary: the knobs (the windows permuted, so the ring stays as wide),
+    the arrivals (another trace seed and peak) and the cold-start jitter (another
+    jitter seed). Yields (workload, fleet, policies, cold_start_seed) for each."""
+    core, fm = pkg
+    scn = _scenario(pkg, 1024, 4096, fleet=8)
+    svc = scn.service_for(scn.cheapest_shape())
+    shape = core.recommend(scn.rows_at(), scn.constraint()).shape.name
+    pool = scn.pool_for(shape, cold_start_s=(60.0, 0.5), max_replicas=16)
+    fleet = fm.FleetConfig((pool,))
+    rows = [r for r in scn.rows if r.shape_name == shape]
+    ctx = dict(rows=rows, constraint=scn.constraint(), units_per_step=scn.units_per_step)
+    base = fm.PredictivePolicy.param_space().sample_lhs(4, seed=0)
+    other = [
+        dict(
+            p,
+            window_bins=q["window_bins"],
+            horizon_s=1.7 * p["horizon_s"],
+            headroom=1.53 - p["headroom"],
+        )
+        for p, q in zip(base, base[::-1])
+    ]
+    for seed, params in enumerate((base, other)):
+        tr = fm.flash_crowd_trace(
+            3.5 * svc.max_throughput,
+            300.0,
+            dt_s=5.0,
+            peak_mult=4.0 + seed,
+            burst_width_s=10.0,
+            n_seeds=3,
+            seed=2 + seed,
+        )
+        pols = [fm.PredictivePolicy.from_params(p, **ctx) for p in params]
+        yield fm.Workload.from_trace(tr, scn.slo_s), fleet, pols, seed
+
+
+def check_replay(device):
+    """The slates of :func:`replay_slates`, then the first again: one signature,
+    so the first dispatch is cold and the others warm. On a card the first runs
+    eagerly, the second captures a CUDA graph over its own inputs and the third
+    replays that graph on the first slate's. Each equals numpy's runs of its own
+    policies at the coarse bar."""
+    held = torchsim.clear_compiled()  # so that the first dispatch is cold
+    slates = list(replay_slates())
+    with t_fleet.telemetry.session() as tel:
+        for wl, fleet, pols, seed in slates + slates[:1]:
+            kernel, kw = torchsim.slate_arguments(wl, fleet, pols, cold_start_seed=seed)
+            out = torchsim.run_dynamics(kernel, **kw, device=device)
+            for pol, sim in zip(pols, torchsim.slate_results(wl, fleet, pols, out)):
+                ref = t_fleet.simulate_fleet(wl, fleet, pol, cold_start_seed=seed)
+                assert_equivalent(ref, sim)
+    spans = [s.attrs for s in tel.tracer.roots if s.name == "torchsim.dispatch"]
+    assert [a["kind"] for a in spans] == ["cold", "warm", "warm"], spans
+    paths = ["eager", "capture", "replay"] if device.type == "cuda" else ["eager"] * 3
+    assert [a["path"] for a in spans] == paths, spans
+    del held
+
+
 def check_forecaster(device, T=170, dt=5.0):
     """The kernels' masked-ring forecast and rolling mean against
     ``autoscaler._RateForecaster``, value for value, with three seeds (numpy
