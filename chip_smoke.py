@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero:
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
    ``kernels/attention/csrc/flash.cu`` (each with the shared ``kernels/csrc/hopper.cuh``)
-   and ``kernels/sprt/csrc/sprt.cu``, one nvcc each, started together; ptxas's registers
-   and spills for each instance (none may spill);
+   and ``kernels/sprt/csrc/sprt.cu`` (its two passes), one nvcc each, started together;
+   ptxas's registers and spills for each instance (none may spill);
 3. the similarity kernel against its plain version on the card: tests/test_kernels.py's
    sweep plus ragged shapes (n of 1, 3 and 1000; m and b off multiples of 64), float32
    and bfloat16, both kinds, each also as sim(x, x); the MSET2 path's shapes on randn
@@ -23,9 +23,14 @@ Phases, in order; any failure exits non-zero:
    full-width Fig. 8 cell (1024 signals, 8192 memory vectors, 65,536 observations),
    response surface, recommendation over the h100 shapes, SPRT on the full-width
    residuals (the SPRT kernel), the launch counts; then the SPRT kernel against its
-   plain version, bit for bit, on those residuals and at ragged sizes (n off multiples
-   of 32, T = 1, no mean, a NaN residual), timed beside the plain loop and the bound;
-   and the full-width cell split by step;
+   plain version, bit for bit, on those residuals (at its own chunk length and as one
+   chunk), at ragged sizes (n off multiples of 32, T = 1, no mean, a NaN residual), on
+   tests/torch_sprt_cases.py's cases at forced chunk lengths (edges on T and on NaN
+   residuals) and on a periodic input whose chunks never meet, with pass 2's re-run
+   steps; timed at full width and on a narrow, long run (1,048,576 x 32), each beside
+   the one-chunk path, the plain loop (full width) and the bound, with the device time
+   of each pass (torch.profiler) and other chunk lengths; and the full-width cell split
+   by step;
 6. the flash-attention kernel against its plain version: tests/test_kernels.py's
    shapes plus ragged S (1, 65, 129 at every head dim), GQA, heads-major strides,
    large logits (q x 8) and a structured case (q = 0, V[j, d] = j + d / 1000) that
@@ -151,6 +156,12 @@ SPRT_RAGGED = [
 # float32 operations an element: divide, two products, two subtractions, two sums, two
 # clamps, two comparisons (and the mean's subtraction)
 SPRT_OPS = 11
+# The narrow, long surveillance run (T, n): a customer with 32 sensors and a long history.
+SPRT_NARROW = (1_048_576, 32)
+# Chunk lengths the SPRT kernel is also timed at, beside its own choice.
+SPRT_CHUNKS = (512, 1024, 2048, 4096)
+# The two SPRT kernels, each built and reported by ptxas.
+SPRT_KERNELS = ("sprt_scan_kernel", "sprt_fixup_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -367,7 +378,8 @@ def kernel_label(mangled):
     in nvcc's ptxas report."""
     m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
     if m is None:
-        return mangled
+        plain = re.search(r"\d+([a-z_]+_kernel)E", mangled)  # not a template
+        return plain.group(1) if plain else mangled
     kernel, args = m.groups()
     dtype = {"f": ["float"], "1": ["bf16"]}.get(args[:1], [])  # f, or 13__nv_bfloat16
     values = [
@@ -419,15 +431,17 @@ def sprt_bound(T, n, with_mu):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def check_sprt(r, sigma, mu, p):
-    """The SPRT kernel against its plain version on the same card inputs: (alarms
-    identical, LLRs bit for bit with NaN where the plain version has one, max |kernel -
-    plain| over the LLRs with NaN = NaN counted as 0)."""
-    from repro_torch.kernels import sprt_scan
+def check_sprt(r, sigma, mu, p, chunk=None, want=None):
+    """The SPRT kernel (at ``chunk`` steps a chunk, or its own choice) against its plain
+    version on the same card inputs, or against ``want``: (alarms identical, LLRs bit for
+    bit with NaN where the plain version has one, max |kernel - plain| over the LLRs with
+    NaN = NaN counted as 0, the steps pass 2 re-ran and the most in one chunk)."""
+    from repro_torch.kernels import sprt_cuda, sprt_ref
 
     kw = dict(m_shift=p.m_shift, upper=p.upper, lower=p.lower)
-    got = sprt_scan(r, sigma, mu, **kw, impl="cuda")
-    want = sprt_scan(r, sigma, mu, **kw, impl="ref")
+    counter = torch.zeros(2, dtype=torch.int64, device=r.device)
+    got = sprt_cuda(r, sigma, mu, **kw, chunk=chunk, reruns=counter)
+    want = sprt_ref(r, sigma, mu, **kw) if want is None else want
     same_alarms = torch.equal(got[0], want[0])
     bits = all(
         x.stride() == y.stride() and torch.equal(x.view(torch.int32), y.view(torch.int32))
@@ -437,46 +451,150 @@ def check_sprt(r, sigma, mu, p):
         float(torch.where(x.isnan() & y.isnan(), 0.0, (x - y).abs()).max())
         for x, y in zip(got[1:], want[1:])
     )
-    return same_alarms, bits, err
+    return same_alarms, bits, err, counter.tolist()
+
+
+def rerun_stats(counts, T, n, L):
+    """Mean and most steps pass 2 re-ran in one chunk of one signal, over the chunks
+    after the first."""
+    chunks = -(-T // L)
+    return dict(mean=counts[0] / max(1, (chunks - 1) * n), max=counts[1], chunks=chunks)
 
 
 def sprt_phase(dev, card, residuals, sigma, mu):
     """Phase 5, after the main path: the SPRT kernel against its plain version on the
-    full-width residuals and at ragged sizes, and its timing. Returns its record."""
-    from repro_torch.kernels import sprt_scan
+    full-width residuals (at its own chunk length and as one chunk), at ragged sizes, on
+    the shared chunk-edge cases and on a periodic input that never meets; then timed at
+    full width and on a narrow, long run, each beside the one-chunk path. Returns its
+    record."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_sprt_cases import CASES, CHUNKS, case_inputs, chunked_params
+
+    from repro_torch.kernels import sprt_cuda, sprt_ref
+    from repro_torch.kernels.sprt.sprt import chunk_length
     from repro_torch.mset import SPRTParams
 
     print(f"  the SPRT kernel against its plain version ({card}):")
     p = SPRTParams()
-    cases = [(tuple(residuals.shape), True, None, residuals, sigma, mu)]
+    kw = dict(m_shift=p.m_shift, upper=p.upper, lower=p.lower)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    T, n = residuals.shape
+    full = (residuals, sigma, mu)
+    # the plain loop over the full-width residuals, timed once; it is also their reference
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_full = sprt_ref(*full, **kw)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    patho = (torch.full((T, n), 1.6, device=dev), torch.ones(n, device=dev), None)
+    want_patho = sprt_ref(*patho, **kw)
+    cases = [
+        (f"full width {T}x{n}", full, None, want_full),
+        (f"full width {T}x{n}, one chunk", full, T, want_full),
+        (f"pathological r = 1.6 {T}x{n}", patho, None, want_patho),
+    ]
     g = torch.Generator(device=dev).manual_seed(3)
-    for T, n, with_mu, nan_at in SPRT_RAGGED:
-        r = torch.randn(T, n, generator=g, device=dev)
-        r[T // 2 :, n // 2] += 3.0  # a shift to alarm on
+    for Tr, nr, with_mu, nan_at in SPRT_RAGGED:
+        r = torch.randn(Tr, nr, generator=g, device=dev)
+        r[Tr // 2 :, nr // 2] += 3.0  # a shift to alarm on
         if nan_at is not None:
             r[nan_at] = float("nan")
-        s = 0.8 + 0.4 * torch.rand(n, generator=g, device=dev)
-        m = 0.1 * torch.randn(n, generator=g, device=dev) if with_mu else None
-        cases.append(((T, n), with_mu, nan_at, r, s, m))
-    max_err = 0.0
-    for shape, with_mu, nan_at, r, s, m in cases:
-        same_alarms, bits, err = check_sprt(r, s, m, p)
+        s = 0.8 + 0.4 * torch.rand(nr, generator=g, device=dev)
+        m = 0.1 * torch.randn(nr, generator=g, device=dev) if with_mu else None
+        cases.append((f"ragged {Tr}x{nr} mu={with_mu} NaN at {nan_at}", (r, s, m), None, None))
+    wants = {}
+    for name, label in chunked_params() + [(name, "own") for name in CASES]:
+        args = tuple(None if x is None else torch.from_numpy(x).to(dev) for x in case_inputs(name))
+        if name not in wants:
+            wants[name] = sprt_ref(*args, **kw)
+        chunk = None if label == "own" else CHUNKS[label](args[0].shape[0])
+        cases.append((f"case {name}, chunk {label}", args, chunk, wants[name]))
+    max_err, reruns = 0.0, {}
+    for name, args, chunk, want in cases:
+        same_alarms, bits, err, counts = check_sprt(*args, p, chunk, want)
         max_err = max(max_err, err)
+        Tc, nc = args[0].shape
+        L = chunk_length(Tc, nc, sms) if chunk is None else min(chunk, Tc)
+        stats = rerun_stats(counts, Tc, nc, L)
+        reruns[name] = stats
         print(
-            f"    {shape} mu={with_mu!s:5s} NaN at {nan_at}: alarms identical {same_alarms}, "
-            f"LLRs bit for bit {bits}, max |kernel - plain| {err:.1e}"
+            f"    {name}: L {L} ({stats['chunks']} chunks), alarms identical {same_alarms}, "
+            f"LLRs bit for bit {bits}, max |kernel - plain| {err:.1e}; pass 2 re-ran "
+            f"{counts[0]} steps, {stats['mean']:.3f} a chunk, at most {stats['max']}"
         )
-        expect(same_alarms and bits and err == 0.0, f"SPRT kernel disagrees at {shape}")
-    kw = dict(m_shift=p.m_shift, upper=p.upper, lower=p.lower)
-    T, n = residuals.shape
-    ms = cuda_ms(lambda: sprt_scan(residuals, sigma, mu, **kw, impl="cuda"), 20)
-    plain_ms = cuda_ms(lambda: sprt_scan(residuals, sigma, mu, **kw, impl="ref"), 1, 0)
+        expect(same_alarms and bits and err == 0.0, f"SPRT kernel disagrees: {name}")
+    del want_full, want_patho, wants
+
+    def timed(args, chunk=None, iters=20):
+        return cuda_ms(lambda: sprt_cuda(*args, **kw, chunk=chunk), iters)
+
+    L = chunk_length(T, n, sms)
+    ms, one_chunk_ms = timed(full), timed(full, T, 3)
+    # the host's time to enqueue a call, with no synchronize: the events' time per call is
+    # the host's when this is as long
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sprt_cuda(*full, **kw)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    patho_ms = timed(patho, None, 3)
     bound_ms, bound_by = sprt_bound(T, n, True)
+    split = {
+        re.sub(r"^.*?(sprt_\w+_kernel).*$", r"\1", k): v
+        for k, v in device_ms_by_kernel(lambda: sprt_cuda(*full, **kw)).items()
+        if "sprt_" in k
+    }
+    sweep = {c: timed(full, c) for c in SPRT_CHUNKS}
     print(
-        f"    full width {T}x{n}: kernel {ms:.3f} ms, plain loop {plain_ms:.1f} ms "
-        f"({plain_ms / ms:.0f}x the kernel's time), bound {bound_ms:.3f} ms ({bound_by}), "
-        f"kernel at {bound_ms / ms:.1%} of bound ({card})"
+        f"    full width {T}x{n}, L {L}: kernel {ms:.4f} ms, one chunk {one_chunk_ms:.3f} ms, "
+        f"plain loop {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+        f"{bound_ms / ms:.1%} of bound, one chunk at {bound_ms / one_chunk_ms:.1%} ({card})"
     )
+    print(
+        "    device time by kernel (torch.profiler): "
+        + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured")
+        + f"; the host enqueues a call in {host_ms:.4f} ms"
+    )
+    print("    at other chunk lengths: " + ", ".join(f"L {c} {t:.4f} ms" for c, t in sweep.items()))
+    print(
+        f"    pathological r = 1.6 at {T}x{n}: {patho_ms:.3f} ms (every chunk after the first "
+        f"re-run whole: {reruns[cases[2][0]]['mean']:.0f} steps a chunk)"
+    )
+    del patho
+    # the narrow, long run, with mu: held against the one-chunk path, which the cases
+    # above hold against the plain loop
+    Tn, nn = SPRT_NARROW
+    gn = torch.Generator(device=dev).manual_seed(4)
+    narrow = (
+        torch.randn(Tn, nn, generator=gn, device=dev),
+        0.8 + 0.4 * torch.rand(nn, generator=gn, device=dev),
+        0.1 * torch.randn(nn, generator=gn, device=dev),
+    )
+    one = sprt_cuda(*narrow, **kw, chunk=Tn)
+    same_alarms, bits, err, counts = check_sprt(*narrow, p, None, one)
+    del one
+    Ln = chunk_length(Tn, nn, sms)
+    narrow_stats = rerun_stats(counts, Tn, nn, Ln)
+    expect(same_alarms and bits and err == 0.0, "SPRT kernel disagrees with one chunk, narrow")
+    narrow_ms, narrow_one_ms = timed(narrow), timed(narrow, Tn, 2)
+    narrow_bound, narrow_by = sprt_bound(Tn, nn, True)
+    narrow_sweep = {c: timed(narrow, c) for c in SPRT_CHUNKS}
+    print(
+        f"    narrow {Tn}x{nn}, L {Ln}: bit for bit with one chunk {same_alarms and bits}; "
+        f"kernel {narrow_ms:.4f} ms, one chunk {narrow_one_ms:.3f} ms, bound "
+        f"{narrow_bound:.4f} ms ({narrow_by}), kernel at {narrow_bound / narrow_ms:.1%} of "
+        f"bound, one chunk at {narrow_bound / narrow_one_ms:.1%}; pass 2 re-ran "
+        f"{narrow_stats['mean']:.3f} steps a chunk, at most {narrow_stats['max']} ({card})"
+    )
+    print(
+        "    at other chunk lengths: "
+        + ", ".join(f"L {c} {t:.4f} ms" for c, t in narrow_sweep.items())
+    )
+    del narrow
+    full_name = cases[0][0]
     return dict(
         ms=ms,
         plain_ms=plain_ms,
@@ -485,6 +603,24 @@ def sprt_phase(dev, card, residuals, sigma, mu):
         library_ms=None,
         max_abs_err=max_err,
         shape=f"residuals {T}x{n} float32, sigma and mu ({n},)",
+        chunk=L,
+        kernels_per_call=len(split) or None,
+        one_chunk_ms=one_chunk_ms,
+        device_ms=split,
+        host_enqueue_ms=host_ms,
+        chunk_sweep_ms=sweep,
+        reruns=reruns[full_name],
+        pathological=dict(ms=patho_ms, reruns=reruns[cases[2][0]]),
+        narrow=dict(
+            shape=f"residuals {Tn}x{nn} float32, sigma and mu ({nn},)",
+            chunk=Ln,
+            ms=narrow_ms,
+            one_chunk_ms=narrow_one_ms,
+            bound_ms=narrow_bound,
+            bound_by=narrow_by,
+            reruns=narrow_stats,
+            chunk_sweep_ms=narrow_sweep,
+        ),
     )
 
 
@@ -1073,6 +1209,9 @@ def main():
         print(f"{name}: {built.library.name}, nvcc {built.seconds:.2f} s (cached={built.cached})")
         report = ptxas_report(built.log)
         expect(built.cached or report, f"no ptxas report for {name}")
+        if name == "sprt" and not built.cached:  # both passes are built
+            missing = set(SPRT_KERNELS) - {label for label, *_ in report}
+            expect(not missing, f"no ptxas report for {sorted(missing)}")
         for label, regs, stored, loaded in report:
             print(f"  {label:34s} {regs:3d} registers, spills {stored} B stored, {loaded} B loaded")
             expect(stored == 0 and loaded == 0, f"{label} spills registers")

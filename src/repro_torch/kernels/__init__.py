@@ -5,7 +5,7 @@
 # compiles as one lax.scan.
 from repro_torch.kernels.attention import flash_attention_cuda, gqa_attention, mha_ref
 from repro_torch.kernels.similarity import similarity, similarity_cuda, similarity_ref
-from repro_torch.kernels.sprt import sprt_cuda, sprt_ref, sprt_scan
+from repro_torch.kernels.sprt import sprt_chunked_ref, sprt_cuda, sprt_ref, sprt_scan
 
 __all__ = [
     "flash_attention_cuda",
@@ -14,6 +14,7 @@ __all__ = [
     "similarity",
     "similarity_cuda",
     "similarity_ref",
+    "sprt_chunked_ref",
     "sprt_cuda",
     "sprt_ref",
     "sprt_scan",

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 import numpy as np
 
 from repro_torch.fleet import PredictivePolicy, torchsim
-from repro_torch.kernels import sprt_scan
+from repro_torch.kernels import sprt_chunked_ref, sprt_ref, sprt_scan
 from repro_torch.launch import scope
 from repro_torch.mset import SPRTParams, estimate, sprt, train
 from repro_torch.tpss import TPSSParams, synthesize
@@ -35,6 +35,7 @@ from torch_fleet_cases import (
     substep_run,
 )
 from torch_parity_data import WELL_POSED, telemetry
+from torch_sprt_cases import CASES, CHUNKS, case_inputs, chunked_params
 
 pytestmark = pytest.mark.gpu
 sim_module = importlib.import_module("repro_torch.kernels.similarity.similarity")
@@ -119,6 +120,30 @@ def test_sprt_kernel_equals_the_plain_loop_bit_for_bit(cuda, T, n, with_mu, nan_
             assert torch.equal(x.view(torch.int32), y.view(torch.int32))
     if nan_at is not None:
         assert bool(torch.isnan(sp[nan_at[0] :, nan_at[1]]).all())
+
+
+# the chunked scan at forced chunk lengths (edges on the NaNs and on T) and at its own
+@pytest.mark.parametrize("name,chunk", chunked_params() + [(name, "own") for name in CASES])
+def test_sprt_chunked_kernel_equals_the_plain_loop_bit_for_bit(cuda, name, chunk):
+    r, sigma, mu = (None if x is None else torch.from_numpy(x).to(cuda) for x in case_inputs(name))
+    T, n = r.shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    L = sprt_module.chunk_length(T, n, sms) if chunk == "own" else CHUNKS[chunk](T)
+    p = SPRTParams()
+    args = (r, sigma, mu, p.m_shift, p.upper, p.lower)
+    counter = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = sprt_module.launches
+    forced = None if chunk == "own" else L
+    a, sp, sn = sprt_module.sprt_cuda(*args, chunk=forced, reruns=counter)
+    assert sprt_module.launches == before + 1
+    a_ref, sp_ref, sn_ref = sprt_ref(*args)
+    assert torch.equal(a, a_ref)
+    for x, y in ((sp, sp_ref), (sn, sn_ref)):
+        assert x.stride() == y.stride()
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    # pass 2 re-ran the steps the model of the algorithm re-runs at the same L
+    *_, reruns = sprt_chunked_ref(*args, L)
+    assert counter.tolist() == [int(reruns.sum()), int(reruns.max())]
 
 
 def test_synthesis_on_the_card(cuda):

@@ -3,9 +3,12 @@ the JAX package's ``lax.scan`` (``repro.mset.sprt.sprt``).
 
 On the CPU the op runs its plain version; the CUDA kernel (K3) is held against
 that plain version bit for bit on the card (``tests/test_torch_gpu.py``,
-``chip_smoke.py``).
+``chip_smoke.py``). The kernel's algorithm, a chunked scan with a fix-up pass, is
+modelled in plain torch by ``sprt_chunked_ref`` and held here bit for bit against
+the plain loop and the JAX package on the cases of ``torch_sprt_cases.py``.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -18,8 +21,9 @@ import jax.numpy as jnp
 
 from repro.mset.sprt import SPRTParams as JaxSPRTParams
 from repro.mset.sprt import sprt as jax_sprt
-from repro_torch.kernels import sprt_scan
+from repro_torch.kernels import sprt_chunked_ref, sprt_ref, sprt_scan
 from repro_torch.mset import SPRTParams, sprt
+from torch_sprt_cases import CASES, CHUNKS, case_inputs, chunked_params
 
 sprt_ops = importlib.import_module("repro_torch.kernels.sprt.ops")
 sprt_module = importlib.import_module("repro_torch.kernels.sprt.sprt")
@@ -136,3 +140,104 @@ def test_ragged_and_empty_shapes(T, n):
     got = _scan(r, sigma, None, SPRTParams(), "ref")
     assert got[0].shape == (T, n) and got[1].shape == (T, n)
     _check(got, want)
+
+
+# ------------------------------------------------ the chunked scan's model
+
+
+def _bits(x):
+    return np.ascontiguousarray(x).view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_case(name):
+    """The case's torch inputs, the plain loop's outputs and the JAX package's."""
+    r, sigma, mu = case_inputs(name)
+    p = SPRTParams()
+    t = torch.from_numpy
+    args = [t(r), t(sigma), None if mu is None else t(mu)]
+    plain = sprt_ref(*args, p.m_shift, p.upper, p.lower)
+    jmu = None if mu is None else jnp.asarray(mu)
+    jax_out = jax_sprt(jnp.asarray(r), jnp.asarray(sigma), JaxSPRTParams(), mu=jmu)
+    return args, plain, [np.asarray(x) for x in jax_out]
+
+
+@pytest.mark.parametrize("name,chunk", chunked_params())
+def test_chunked_model_equals_the_plain_loop_and_reference_bit_for_bit(name, chunk):
+    args, plain, (a_jax, sp_jax, sn_jax) = _chunk_case(name)
+    T, n = args[0].shape
+    L = CHUNKS[chunk](T)
+    p = SPRTParams()
+    a, sp, sn, reruns = sprt_chunked_ref(*args, p.m_shift, p.upper, p.lower, L)
+    assert a.dtype == torch.bool and a.shape == (T, n)
+    assert sp.stride() == plain[1].stride() and sn.stride() == plain[2].stride()
+    assert torch.equal(a, plain[0])
+    np.testing.assert_array_equal(a.numpy(), a_jax)
+    for x, y, z in ((sp, plain[1], sp_jax), (sn, plain[2], sn_jax)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        np.testing.assert_array_equal(_bits(x.numpy()), _bits(z))
+    C = -(-T // min(L, T))
+    assert reruns.shape == (C, n) and reruns.dtype == torch.int64
+    assert not bool(reruns[0].any())  # the first chunk starts from the true start
+    if L >= T:
+        assert C == 1
+    lengths = torch.tensor([min(L, T - c * L) for c in range(C)])
+    assert bool((reruns <= lengths[:, None]).all())
+    if CASES[name][3] == "pathological":
+        # the guessed trajectory keeps its own phase: every later chunk is re-run whole
+        assert torch.equal(reruns[1:], lengths[1:, None].expand(C - 1, n))
+
+
+def test_chunked_model_rewrites_after_a_nan_to_the_end():
+    """A NaN sum never meets a finite one: from the chunk after a NaN on, its signal
+    is re-run to the end of every chunk; the NaN's own chunk is re-run up to it only
+    where pass 1 had not met the true trajectory before it."""
+    args, plain, _ = _chunk_case("nan-at-chunk-edges")
+    p = SPRTParams()
+    L = 64
+    *out, reruns = sprt_chunked_ref(*args, p.m_shift, p.upper, p.lower, L)
+    T = args[0].shape[0]
+    for t_nan, j in ((448, 1), (447, 2)):
+        first = t_nan // L + 1
+        whole = torch.tensor([min(L, T - c * L) for c in range(first, reruns.shape[0])])
+        assert torch.equal(reruns[first:, j], whole)
+        assert bool(torch.isnan(out[1][t_nan:, j]).all())
+    assert torch.equal(out[0], plain[0])
+    for x, y in zip(out[1:], plain[1:]):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_chunked_model_needs_few_reruns_on_gaussian_residuals():
+    """Under no shift the clamp at ``lower`` makes a chunk forget its start within a
+    few steps: the re-run steps are a small share of the chunks after the first."""
+    args, plain, _ = _chunk_case("gauss")
+    p = SPRTParams()
+    *_, reruns = sprt_chunked_ref(*args, p.m_shift, p.upper, p.lower, 64)
+    assert int(reruns.max()) <= 8 and float(reruns[1:].float().mean()) < 2.0
+
+
+def test_chunk_length_fills_the_card():
+    L = sprt_module.chunk_length
+    # 132 SMs: 33 chunks of 1986 steps at the full-width cell, 33 x 1024 >= 132 x 256 threads
+    assert L(65536, 1024, 132) == 1986 and -(-65536 // 1986) * 1024 >= 132 * 256
+    # one chunk when the signals alone fill the card, or T is short
+    assert L(65536, 200_000, 132) == 65536
+    assert L(200, 8, 132) == 200
+    assert L(1, 1024, 132) == 1
+    for T, n in ((1_048_576, 32), (4099, 1000), (2049, 65), (65536, 1024)):
+        steps = L(T, n, 132)
+        assert sprt_module.MIN_CHUNK <= steps <= T
+        assert -(-T // steps) * n >= 132 * 256 or steps == sprt_module.MIN_CHUNK
+
+
+def test_sprt_cuda_checks_chunk_and_reruns_before_launching():
+    r, sigma, mu = (torch.from_numpy(x) for x in _inputs(2.0, T=20))
+    before = sprt_module.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        sprt_module.sprt_cuda(r, sigma, mu, 3.0, 6.9, -6.9, chunk=4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        counter = torch.zeros(2, dtype=torch.int64)
+        sprt_module.sprt_cuda(r, sigma, mu, 3.0, 6.9, -6.9, reruns=counter)
+    with pytest.raises(ValueError, match="chunk must be >= 1"):
+        sprt_chunked_ref(r, sigma, mu, 3.0, 6.9, -6.9, 0)
+    assert sprt_module.launches == before
