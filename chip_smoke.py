@@ -58,8 +58,18 @@ Phases, in order; any failure exits non-zero:
 11. the paper's scoping example, ``examples/torch_scope_containers.py``'s ``main()``:
     measured scoping over its grid, the surface's r^2, and both customers' rankings
     over the v5e and h100 shapes; then one JSON line of it;
-12. one JSON line describing each kernel;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. the autonomous loop at full width (benchmarks/closed_loop.py --full's world, built
+    from the port): the incumbent tune on the card against numpy, bit for bit; the
+    closed-loop controller on a x2 service drift, its probe and re-tunes on the card,
+    with the same events, estimate and swap as on numpy with the probe on the CPU
+    (the similarity and SPRT kernels' counts read around it); the probe's verdicts on
+    the card against the CPU's on every segment, K1 at the probe's shapes against its
+    plain version and K3 bit for bit on its residuals; the scoping oracle's column
+    build on the card over benchmarks/oracle.py --full's grid against a numpy per-cell
+    build of one column, its query latency and its verify_oracle bound; then one JSON
+    line of it, with the dispatches by path;
+13. one JSON line describing each kernel;
+14. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -162,6 +172,30 @@ SPRT_NARROW = (1_048_576, 32)
 SPRT_CHUNKS = (512, 1024, 2048, 4096)
 # The two SPRT kernels, each built and reported by ptxas.
 SPRT_KERNELS = ("sprt_scan_kernel", "sprt_fixup_kernel")
+# Phase 12, the autonomous loop: benchmarks/closed_loop.py --full's world (its build()
+# and run()), built here from the port since the benchmark folder is not ported. The
+# MSET2 serving fleet of mset_scenario(1024 signals, 4096 memory vectors, 8 GB fleet,
+# SLO 2 s) on its recommended shape; PIPolicy, quota QUOTA, COLD_START_S, max_queue of
+# 2 x mean rate x DT_S; a diurnal trace of 7,200 s (--full) at AMPLITUDE and MEAN_MULT
+# one replica's throughput, 8 Monte Carlo seeds (SEED + 1) and 4 live seeds (SEED + 101);
+# Objective(TUNE_BAR, 2000); the incumbent tuned with TuningBudget(16, init_seeds=2);
+# a DRIFT_FACTOR service drift at T_DRIFT_FRAC; the controller at SEGMENT_BINS with a
+# re-tune budget of 16 (--full); recovery judged COLD_BINS after the swap.
+CONTROL = dict(
+    n_signals=1024, n_memvec=4096, fleet=8, slo_s=2.0, quota=24, cold_start_s=60.0,
+    dt_s=10.0, duration_s=7200.0, amplitude=0.4, mean_mult=3.0, mc_seeds=8, live_seeds=4,
+    seed=0, tune_bar=0.96, penalty=2000.0, tune_candidates=16, init_seeds=2,
+    drift_factor=2.0, t_drift_frac=0.25, segment_bins=15, retune_candidates=16,
+)
+# benchmarks/oracle.py --full's grid: mean rates in multiples of one replica's throughput
+# x BURST_AXIS x SLO_AXIS, GRID_DURATION_S at DT_S, 4 seeds, ORACLE_SEED, 14 candidates;
+# verify_oracle's 5 spot checks (--full). The numpy per-cell build runs ORACLE_COLUMN,
+# one (rate, burstiness) column, re-seeded so that its seed is that column's in the grid.
+ORACLE = dict(
+    rate_mults=(1.5, 3.0, 6.0, 12.0), burstiness=(1.0, 1.6, 2.2), slos=(1.0, 2.0, 4.0),
+    duration_s=1800.0, n_seeds=4, seed=7, candidates=14, init_seeds=2, verify_samples=5,
+)
+ORACLE_COLUMN = (1, 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -1165,6 +1199,332 @@ def example_phase(dev, card, counted):
     return record
 
 
+def walk_spans(spans):
+    for span in spans:
+        yield span
+        yield from walk_spans(span.children)
+
+
+def dispatch_record(tel):
+    """Count and seconds of the ``torchsim.dispatch`` spans of a telemetry session, by
+    ``path`` (eager, capture or replay), and its ``torchsim_dispatch_total`` counter."""
+    paths = {}
+    for span in walk_spans(tel.tracer.roots):
+        if span.name == "torchsim.dispatch":
+            item = paths.setdefault(span.attrs["path"], {"count": 0, "seconds": 0.0})
+            item["count"] += 1
+            item["seconds"] += span.duration_s
+    counters = tel.metrics.snapshot()["counter"].get("torchsim_dispatch_total", {})
+    return {"by_path": paths, "dispatch_total": counters}
+
+
+def control_world(backend, device):
+    """benchmarks/closed_loop.py --full's nominal tuning scenario and drifted live case,
+    from the port (``CONTROL``), its scenario on ``backend`` and ``device``. Returns
+    (scenario, case, shape)."""
+    from repro_torch.core import recommend
+    from repro_torch.fleet import (
+        FleetConfig,
+        PIPolicy,
+        Workload,
+        diurnal_trace,
+        mset_scenario,
+        service_degradation_case,
+        tuning_scenario,
+    )
+
+    c = CONTROL
+    scenario = mset_scenario(
+        n_signals=c["n_signals"], n_memvec=c["n_memvec"], fleet=c["fleet"], slo_s=c["slo_s"]
+    )
+    shape = recommend(scenario.rows_at(), scenario.constraint()).shape.name
+    mean_rate = c["mean_mult"] * scenario.service_for(shape).max_throughput
+    kw = dict(dt_s=c["dt_s"], amplitude=c["amplitude"], period_s=c["duration_s"])
+    mc = diurnal_trace(
+        mean_rate, c["duration_s"], n_seeds=c["mc_seeds"], seed=c["seed"] + 1, **kw
+    )
+    live = diurnal_trace(
+        mean_rate, c["duration_s"], n_seeds=c["live_seeds"], seed=c["seed"] + 101, **kw
+    )
+    pool = scenario.pool_for(shape, cold_start_s=c["cold_start_s"], max_replicas=c["quota"])
+    fleet = FleetConfig((pool,), max_queue=2.0 * mean_rate * c["dt_s"])
+    ts = tuning_scenario(
+        scenario,
+        mc,
+        PIPolicy,
+        fleet=fleet,
+        cold_start_s=c["cold_start_s"],
+        backend=backend,
+        device=device,
+        name="mset-diurnal/pi",
+    )
+    case = service_degradation_case(
+        Workload.from_trace(live, scenario.slo_s),
+        fleet,
+        factor=c["drift_factor"],
+        t_drift_frac=c["t_drift_frac"],
+    )
+    return ts, case, shape
+
+
+def control_phase(dev, card, counted):
+    """Phase 12: the autonomous loop at full width (``CONTROL``, ``ORACLE``): the
+    incumbent tune, the closed-loop controller on a drift, the drift probe and the
+    scoping oracle, each on the card (``backend="torch"``, probe on the card) against
+    the port on numpy and the CPU. Returns the control JSON record."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_control_cases import events_of, same_evals
+
+    from repro_torch.fleet import (
+        ClosedLoopController,
+        Objective,
+        OracleGrid,
+        PIPolicy,
+        ScopingOracle,
+        TraceFeatures,
+        TuningBudget,
+        build_oracle,
+        query_latency_us,
+        telemetry,
+        torchsim,
+        tune,
+        verify_oracle,
+        window_metrics,
+    )
+    from repro_torch.fleet.telemetry.drift import DriftProbe, telemetry_matrix
+    from repro_torch.kernels import similarity_cuda, similarity_ref
+    from repro_torch.mset import MSETModel, estimate
+
+    c = CONTROL
+    print(f"== 12. the autonomous loop at full width on {card}")
+    t_phase = time.perf_counter()
+    torchsim.clear_compiled()  # free phase 10's graphs
+    ts_np, case, shape = control_world("numpy", "cpu")
+    ts_card, _, _ = control_world("torch", dev)
+    T, td = case.n_bins, case.drift_bins()[0]
+    rec = {"card": card, "shape": shape, "bins": T, "mc_seeds": ts_np.n_seeds}
+    objective = Objective(min_attainment=c["tune_bar"], penalty_usd_per_hour=c["penalty"])
+    space = PIPolicy.param_space()
+    budget = TuningBudget(n_candidates=c["tune_candidates"], init_seeds=c["init_seeds"])
+
+    # 1. The incumbent tune: numpy, then the card in a telemetry session (its spans).
+    t0 = time.perf_counter()
+    inc_np = tune(ts_np, space, objective, budget, seed=c["seed"])
+    tune_np_s = time.perf_counter() - t0
+    with telemetry.session() as tel:
+        t0 = time.perf_counter()
+        inc_card = tune(ts_card, space, objective, budget, seed=c["seed"])
+        tune_card_s = time.perf_counter() - t0
+    expect(inc_card.winner.params == inc_np.winner.params, "the card's tune picks another winner")
+    expect(inc_card.sims_used == inc_np.sims_used, "the card's tune spends another budget")
+    expect(same_evals(inc_np.evals, inc_card.evals), "the card's tune differs from numpy's")
+    rec["tune"] = dict(
+        card_s=tune_card_s,
+        numpy_s=tune_np_s,
+        sims_used=inc_card.sims_used,
+        winner=inc_card.winner.params,
+        **dispatch_record(tel),
+    )
+    print(
+        f"  incumbent tune ({T} bins, {ts_np.n_seeds} seeds, {c['tune_candidates']} "
+        f"candidates): card {tune_card_s:.3f} s, numpy {tune_np_s:.3f} s; equal winner "
+        f"{inc_card.winner.params}, {inc_card.sims_used} sims, per-seed arrays bit for bit; "
+        f"dispatches {rec['tune']['by_path']}"
+    )
+
+    # 2. The controller on the drift: numpy with the probe on the CPU, then the card with
+    #    the kernels' counts set to 0 just before and read just after.
+    retune = TuningBudget(n_candidates=c["retune_candidates"], init_seeds=c["init_seeds"])
+    kw = dict(segment_bins=c["segment_bins"], retune_budget=retune, objective=objective)
+    t0 = time.perf_counter()
+    res_np = ClosedLoopController(ts_np, inc_np, **kw).run(case)
+    ctl_np_s = time.perf_counter() - t0
+    ctl_card = ClosedLoopController(ts_card, inc_card, **kw)
+    for module in counted.values():
+        module.launches = 0
+    with telemetry.session() as tel:
+        t0 = time.perf_counter()
+        res = ctl_card.run(case)
+        ctl_card_s = time.perf_counter() - t0
+    launches = {name: module.launches for name, module in counted.items()}
+    print(f"  kernel launches during the controller's run: {launches}")
+    expect(launches["similarity"] > 0, "the controller never launched the similarity kernel")
+    expect(launches["sprt"] > 0, "the controller never launched the SPRT kernel")
+    expect(events_of(res) == events_of(res_np), "the card's controller decides otherwise")
+    expect(res.est_factor == res_np.est_factor, "the card's degradation estimate differs")
+    expect(res.active_params == res_np.active_params, "the card's controller swaps otherwise")
+    alarm = next((e.t_bin for e in res.events if e.kind == "drift-alarm"), None)
+    swap = next((e.t_bin for e in res.events if e.kind == "swap"), None)
+    t_rec = td if swap is None else min(swap + int(c["cold_start_s"] / c["dt_s"]), T - 1)
+    rec["controller"] = dict(
+        card_s=ctl_card_s,
+        numpy_cpu_s=ctl_np_s,
+        events=events_of(res),
+        drift_bin=td,
+        first_alarm_bin=alarm,
+        detection_delay_bins=None if alarm is None else alarm - td,
+        swap_bin=swap,
+        est_factor=res.est_factor,
+        active_params=res.active_params,
+        post_swap_worst_class_attainment=window_metrics(res.sim, t_rec).worst_class_attainment,
+        post_drift_usd_per_hour=window_metrics(res.sim, td, T).usd_per_hour,
+        retune_sims=[r.sims_used for r in res.retunes],
+        launches=launches,
+        **dispatch_record(tel),
+    )
+    print(
+        f"  controller: card {ctl_card_s:.3f} s, numpy with the probe on the CPU "
+        f"{ctl_np_s:.3f} s; the same events {events_of(res)}, est_factor {res.est_factor}, "
+        f"active {res.active_params}; drift at bin {td}, alarm at {alarm}, swap at {swap}; "
+        "post-swap worst-class attainment "
+        f"{rec['controller']['post_swap_worst_class_attainment']:.4f}"
+    )
+
+    # 3. The probe on the card against the CPU on the same windows: the live run's
+    #    segments, fitted on the incumbent's model-predicted telemetry. K1 at the probe's
+    #    shapes against its plain version (ill-conditioned pairs at n = 3 held to the
+    #    float64 cancellation bound), K3 bit for bit on the probe's residuals.
+    base = ctl_card._reference_run(case.workload, case.fleet, inc_np.winner.params, "fifo")
+    X = telemetry_matrix(res_np.sim)
+    windows = [X[t : t + c["segment_bins"]] for t in range(0, T, c["segment_bins"])]
+    p_card, p_cpu = DriftProbe(device=dev).fit(base), DriftProbe(device="cpu").fit(base)
+    v_card = [p_card.check(w).drifted for w in windows]
+    v_cpu = [p_cpu.check(w).drifted for w in windows]
+    expect(v_card == v_cpu, "the probe's verdicts on the card differ from the CPU's")
+    # residuals of the whole live run: the CPU's model on the CPU, the same model carried
+    # to the card, and the card's own model
+    m = p_card.model
+    Xw = torch.as_tensor(X.astype(np.float32))
+    _, r_cpu = estimate(p_cpu.model, Xw)
+    _, r_one = estimate(MSETModel.from_numpy(**p_cpu.model.to_numpy(), device=dev), Xw.to(dev))
+    _, r_own = estimate(m, Xw.to(dev))
+    scale = float(r_cpu.abs().max())
+    one_err = float((r_one.cpu() - r_cpu).abs().max())
+    own_err = float((r_own.cpu() - r_cpu).abs().max())
+    resid = dict(
+        cpu_max_abs=scale,
+        one_model_max_abs_err=one_err,
+        one_model_rel=one_err / scale,
+        own_models_max_abs_err=own_err,
+        own_models_rel=own_err / scale,
+        ginv_max_abs={
+            "card": float(m.Ginv.abs().max()),
+            "cpu": float(p_cpu.model.Ginv.abs().max()),
+        },
+    )
+    k1 = []
+    for y in (m.D, (Xw.to(dev) - m.mean) / m.std):
+        out = similarity_cuda(m.D, y, m.gamma, m.kind)
+        ref = similarity_ref(m.D, y, m.gamma, m.kind)
+        err, n_ill, far_err, ok = check_ragged(m.D, y, m.gamma, m.kind, out, ref)
+        shape_k1 = [m.D.shape[0], y.shape[0], m.D.shape[1]]
+        expect(ok, f"K1 at the probe's shape {shape_k1} misses its bar")
+        k1.append(dict(shape=shape_k1, max_abs_err=err, ill=n_ill, float64_err=far_err))
+    sig32 = torch.as_tensor(p_card.sigma, dtype=torch.float32, device=dev)
+    mu32 = torch.as_tensor(p_card.mu, dtype=torch.float32, device=dev)
+    same, bits, sprt_err, _ = check_sprt(r_own, sig32, mu32, p_card.sprt_params)
+    expect(same and bits, "K3 on the probe's residuals differs from its plain version")
+    distinct = int(len(torch.unique(m.D, dim=0)))
+    rec["probe"] = dict(
+        windows=len(windows),
+        drifted_windows=sum(v_card),
+        residuals=resid,
+        k1=k1,
+        k3_max_abs_err=sprt_err,
+        memvec_distinct=distinct,
+        n_memvec=int(m.D.shape[0]),
+    )
+    print(
+        f"  probe: {len(windows)} windows, {sum(v_card)} drifted, the same verdicts on the "
+        f"card and the CPU; {distinct} of {m.D.shape[0]} memory vectors distinct; residuals "
+        f"card vs CPU {resid}; K1 {k1}; K3 bit for bit"
+    )
+
+    # 4. The oracle: the column build on the card; one column, cell by cell, on numpy.
+    o = ORACLE
+    mt = ts_np.fleet.pools[0].service.max_throughput
+    grid = OracleGrid(
+        mean_rates=tuple(r * mt for r in o["rate_mults"]),
+        burstiness=o["burstiness"],
+        slos=o["slos"],
+        duration_s=o["duration_s"],
+        dt_s=c["dt_s"],
+        n_seeds=o["n_seeds"],
+        seed=o["seed"],
+    )
+    okw = dict(
+        objective=objective,
+        budget=TuningBudget(n_candidates=o["candidates"], init_seeds=o["init_seeds"]),
+        context=ts_np.context,
+        max_queue=ts_np.max_queue,
+        name="mset-oracle",
+    )
+    with telemetry.session() as tel:
+        t0 = time.perf_counter()
+        table = build_oracle(
+            grid, ts_card.fleet, PIPolicy, space, backend="torch", device=dev, **okw
+        )
+        build_card_s = time.perf_counter() - t0
+    # build_oracle seeds column (i, j) with seed + 7919 (1 + 31 i + j); a one-column
+    # grid's column is (0, 0), so its seed is moved by 7919 (31 i + j)
+    i, j = ORACLE_COLUMN
+    column = OracleGrid(
+        mean_rates=(grid.mean_rates[i],),
+        burstiness=(grid.burstiness[j],),
+        slos=o["slos"],
+        duration_s=o["duration_s"],
+        dt_s=c["dt_s"],
+        n_seeds=o["n_seeds"],
+        seed=o["seed"] + 7919 * (i * 31 + j),
+    )
+    t0 = time.perf_counter()
+    per_cell = build_oracle(column, ts_np.fleet, PIPolicy, space, backend="numpy", **okw)
+    build_np_s = time.perf_counter() - t0
+
+    def cell_json(cell):
+        return {k: v for k, v in cell.to_json().items() if k != "idx"}
+
+    for k in range(len(o["slos"])):
+        expect(
+            cell_json(table.cells[(i, j, k)]) == cell_json(per_cell.cells[(0, 0, k)]),
+            f"oracle cell {(i, j, k)}: the card's column build differs from numpy's",
+        )
+    lat = query_latency_us(ScopingOracle(table), TraceFeatures(3.1 * mt, 1.8, 0.0), c["slo_s"])
+    t0 = time.perf_counter()
+    ver = verify_oracle(
+        table,
+        ts_card.fleet,
+        PIPolicy,
+        n_samples=o["verify_samples"],
+        seed=o["seed"],
+        context=ts_np.context,
+        max_queue=ts_np.max_queue,
+        backend="torch",
+        device=dev,
+    )
+    verify_s = time.perf_counter() - t0
+    rec["oracle"] = dict(
+        cells=table.n_cells,
+        build_card_s=build_card_s,
+        column_numpy_s=build_np_s,
+        column_cells=len(o["slos"]),
+        sims_used=table.build_info["sims_used"],
+        query_median_us=lat["median_us"],
+        query_p99_us=lat["p99_us"],
+        verify_s=verify_s,
+        verify={k: v for k, v in ver.to_json().items() if k != "checks"},
+        **dispatch_record(tel),
+    )
+    print(
+        f"  oracle: {table.n_cells} cells built on the card in {build_card_s:.3f} s; one "
+        f"column of {len(o['slos'])} cells per cell on numpy in {build_np_s:.3f} s, equal "
+        f"cell for cell; query median {lat['median_us']:.1f} us; verify {ver.summary()}"
+    )
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the autonomous-loop phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -1475,7 +1835,11 @@ def main():
     counted = {"similarity": sim_module, "flash_attention": flash_module, "sprt": sprt_module}
     print(json.dumps({"example": example_phase(dev, card, counted)}))
 
-    # ----------------------------------------------------------- 12. kernels
+    # ---------------------------------------------------- 12. the autonomous loop
+    control = control_phase(dev, card, counted)
+    print(json.dumps({"control": control}))
+
+    # ----------------------------------------------------------- 13. kernels
     t = timings["surveil"]
     train_shape = "x = y {0}x{2}, float32 (G = sim(D, D))".format(*TRAIN_SHAPE)
     kernels = [
@@ -1485,6 +1849,7 @@ def main():
             "source": "src/repro_torch/kernels/similarity/csrc/similarity.cu",
             "replaces": "src/repro/kernels/similarity/similarity.py:47",
             "launches": launches,
+            "control_launches": control["controller"]["launches"]["similarity"],
             "max_abs_err": max_abs_err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1516,6 +1881,7 @@ def main():
             "source": "src/repro_torch/kernels/sprt/csrc/sprt.cu",
             "replaces": "src/repro/mset/sprt.py:44",
             "launches": sprt_launches,
+            "control_launches": control["controller"]["launches"]["sprt"],
             **sprt_timing,
         },
     ]

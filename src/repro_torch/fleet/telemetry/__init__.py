@@ -1,13 +1,14 @@
-"""Opt-in fleet telemetry: structured metrics, wall-clock span tracing and
-exporters (JSONL / Prometheus text / ASCII dashboard).
+"""Opt-in fleet telemetry: structured metrics, wall-clock span tracing, a
+drift-probe substrate, and exporters (JSONL / Prometheus text / ASCII
+dashboard).
 
 The paper's autonomous loop is built on *observing* the running container —
 its MSET+SPRT prognostic engine consumes telemetry streams to detect
 deviation from the predicted envelope. This package is that observation
 layer for the fleet pipeline: the simulator records per-bin metric streams,
-and the compiled backend records timing spans. (The reference package's
-drift probe, which feeds the observed service-time stream back into MSET2
-as a residual monitor, is not ported yet.)
+the tuner and the compiled backend record timing spans, and
+:mod:`repro_torch.fleet.telemetry.drift` feeds the observed service-time stream
+back into ``repro_torch.mset`` as a residual monitor.
 
 Usage — telemetry is **off by default**; instrumented code paths are exact
 no-ops (bit-identical results, negligible overhead) until a session is
@@ -54,6 +55,8 @@ __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Series", "Histogram",
     "DEFAULT_TIME_BUCKETS", "label_str", "record_sim", "service_time_stream",
     "Span", "SpanTracer", "render_spans", "export",
+    # lazy (see __getattr__): DriftProbe, DriftReport, telemetry_matrix,
+    "drift",
 ]
 
 
@@ -144,3 +147,18 @@ def record(sim, slot_bt=None, slot_served=None, order=None) -> None:
         record_sim(tel.metrics, sim, slot_bt=slot_bt,
                    slot_served=slot_served, order=order)
 
+
+_LAZY = ("DriftProbe", "DriftReport", "DEFAULT_SIGNALS", "telemetry_matrix",
+         "degrade_fleet", "drift")
+
+
+def __getattr__(name: str):
+    # drift pulls in torch, repro_torch.mset and the kernels' wrappers; keep
+    # the core session machinery importable without touching them.
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module("repro_torch.fleet.telemetry.drift")
+        if name == "drift":
+            return mod
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -734,6 +734,38 @@ def clear_compiled() -> list:
     return evicted
 
 
+def slate_windows(policies, at_least=None):
+    """(W, Ws): the widest forecast (or fit-to-usage) window and sustain window of
+    ``policies``, at least ``at_least`` (a racing round passes its earlier rounds'
+    widths, so that a shrinking slate keeps its dispatch signature); 0 for none."""
+    # fit-to-usage keeps its own ring buffer (window_bins, no forecaster)
+    windows = [
+        int(p.forecaster.window_bins if hasattr(p, "forecaster") else getattr(p, "window_bins", 0))
+        for p in policies
+    ]
+    sustains = [int(p.sustain.window_bins) for p in policies if hasattr(p, "sustain")]
+    w0, s0 = at_least or (0, 0)
+    return max([w0, *windows]), max([s0, *sustains])
+
+
+def slate_kernel(policies, fleets, classes, windows):
+    """The one policy kernel a slate batches on, its ring buffers ``windows`` wide
+    (:func:`slate_windows`), or None when the slate cannot batch: a policy with no
+    kernel, or one whose kernel (on its own fleet) differs from the first's."""
+    W, Ws = (w or None for w in windows)
+
+    def kernel_of(pol, fleet):
+        make = getattr(pol, "kernel", None)
+        return None if make is None else make(fleet, classes, max_window=W, max_sustain=Ws)
+
+    kernel = kernel_of(policies[0], fleets[0])
+    if kernel is None:
+        return None
+    if any(kernel_of(p, f) is not kernel for p, f in zip(policies, fleets)):
+        return None
+    return kernel
+
+
 def slate_arguments(
     workload,
     fleet,
@@ -743,54 +775,85 @@ def slate_arguments(
     max_queue=None,
     cold_start_seed: int = 0,
     cs_delay=None,
+    fleets=None,
+    disciplines=None,
+    windows=None,
+    tables_for=None,
 ):
     """The arguments of :func:`run_dynamics` for a slate of policies of one
-    family, all against the same workload and seeds (the lattice of a racing
-    round; ``simulate_fleet(backend="torch")`` runs a slate of one). Returns
+    family against the same seeds (the lattice of a racing round;
+    ``simulate_fleet(backend="torch")`` runs a slate of one). Returns
     ``(kernel, kwargs)``; pass ``n_substeps``, ``preemptive``, ``tile`` and
-    ``device`` beside ``kwargs``. ``cs_delay`` is the (S, T, P) cold-start
-    jitter, drawn from ``cold_start_seed`` when not given.
+    ``device`` beside ``kwargs``. The one builder of those inputs: the plain call
+    gives every policy ``fleet`` and ``discipline``, and the tuner's batched round
+    passes the rest.
 
-    Ring buffers are sized to the widest window in the slate, so candidates
-    with different windows share one kernel; a slate that mixes families
-    raises ValueError."""
-    from repro_torch.fleet.discipline import cohort_tables, get_discipline
+    * ``workload`` is a ``Workload``, or a sequence of them (a trace portfolio:
+      same classes, dt, bins and seeds) folded along the seed axis, rows
+      ``member * S + seed``; the primary (first) member's opening rate sets every
+      member's initial fleet.
+    * ``cs_delay`` is the (rows, T, P) cold-start jitter of those rows, drawn
+      from ``cold_start_seed`` when not given.
+    * ``fleets`` and ``disciplines`` are per policy (the tuner's ``quota:*`` and
+      ``discipline`` dims); ``fleet`` is the template whose drain order and
+      service terms the slate shares.
+    * ``windows`` is the least (W, Ws) the ring buffers are sized to
+      (:func:`slate_windows`); they are at least the widest window in the slate.
+    * ``tables_for(discipline)`` returns a discipline's cohort tables (a cache);
+      by default each distinct discipline's are built here.
+
+    A slate that cannot batch (:func:`slate_kernel`) raises ValueError."""
+    from repro_torch.fleet.discipline import cohort_tables
     from repro_torch.fleet.simulator import (
         _candidate_arrays,
         _dynamics_inputs,
         draw_cold_start_delays,
     )
+    from repro_torch.fleet.traces import Trace
+    from repro_torch.fleet.workload import Workload
 
-    trace = workload.total_trace()
-    S, T = trace.arrivals.shape
-    # fit-to-usage keeps its own ring buffer (window_bins, no forecaster)
-    windows = [
-        int(p.forecaster.window_bins if hasattr(p, "forecaster") else getattr(p, "window_bins", 0))
-        for p in policies
-    ]
-    sustains = [int(p.sustain.window_bins) for p in policies if hasattr(p, "sustain")]
-    W = max(windows, default=0) or None
-    Ws = max(sustains, default=0) or None
-    kernel = policies[0].kernel(fleet, workload.classes, max_window=W, max_sustain=Ws)
-    for pol in policies:
-        if pol.kernel(fleet, workload.classes, max_window=W, max_sustain=Ws) is not kernel:
-            raise ValueError("a slate batches one policy family with one configuration")
-    order = fleet.drain_order()
-    tables = cohort_tables(get_discipline(discipline), workload.classes, T, trace.dt_s)
-    min_rep, max_rep, init_ready = _candidate_arrays(fleet, order, trace.rate[0])
+    members = list(workload) if isinstance(workload, (list, tuple)) else [workload]
+    wl = members[0]
+    if len(members) > 1:
+        # rates stay the primary's: they only feed the initial fleet
+        wl = Workload(wl.name, wl.classes, tuple(
+            Trace(tr.name, tr.dt_s, tr.rate,
+                  np.concatenate([m.traces[c].arrivals for m in members], axis=0))
+            for c, tr in enumerate(wl.traces)
+        ))
     n = len(policies)
+    fleets = [fleet] * n if fleets is None else list(fleets)
+    disciplines = [discipline] * n if disciplines is None else list(disciplines)
+    trace = wl.total_trace()
+    S, T = trace.arrivals.shape
+    windows = slate_windows(policies, windows)
+    kernel = slate_kernel(policies, fleets, wl.classes, windows)
+    if kernel is None:
+        raise ValueError("a slate batches one policy family with one configuration")
+    order = fleet.drain_order()
+    if tables_for is None:
+        built = {}
+
+        def tables_for(d):
+            key = d if isinstance(d, str) else id(d)
+            if key not in built:
+                built[key] = cohort_tables(d, wl.classes, T, trace.dt_s)
+            return built[key]
+
+    tables = [tables_for(d) for d in disciplines]
+    bounds = [_candidate_arrays(f, order, members[0].total_trace().rate[0]) for f in fleets]
     if cs_delay is None:
         cs_delay = draw_cold_start_delays(
             fleet.pools, S, T, trace.dt_s, cold_start_seed, np.arange(S)
         )
     kwargs = dict(
-        _dynamics_inputs(workload, fleet, order, cs_delay),
+        _dynamics_inputs(wl, fleet, order, cs_delay),
         max_queue=fleet.max_queue if max_queue is None else max_queue,
-        tables={k: np.stack([v] * n) for k, v in tables.items()},
+        tables={k: np.stack([t[k] for t in tables]) for k in tables[0]},
         kp={k: np.array([kernel.params_of(p)[k] for p in policies]) for k in kernel.param_names},
-        min_rep=np.stack([min_rep] * n),
-        max_rep=np.stack([max_rep] * n),
-        init_ready=np.stack([init_ready] * n),
+        min_rep=np.stack([b[0] for b in bounds]),
+        max_rep=np.stack([b[1] for b in bounds]),
+        init_ready=np.stack([b[2] for b in bounds]),
     )
     return kernel, kwargs
 

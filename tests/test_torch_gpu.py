@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
+import torch_control_cases
 from repro_torch.fleet import PredictivePolicy, torchsim
 from repro_torch.kernels import sprt_chunked_ref, sprt_ref, sprt_scan
 from repro_torch.launch import scope
@@ -361,3 +362,72 @@ def test_fleet_window_sums_add_left_to_right_on_the_card(cuda):
             want = want + row
         got = seq_sum0(torch.from_numpy(x).to(cuda)).cpu().numpy()
         assert np.array_equal(got, want), shape
+
+
+# ---------------------- the autonomous loop (drift, tuner, oracle, controller) -----------
+
+
+def test_drift_probe_on_the_card_launches_k1_and_k3_and_gives_the_cpu_verdicts(cuda):
+    """The probe trains and checks on the card (K1's sim(D, D) and sim(D, X), K3's
+    SPRT) and reaches the CPU probe's verdicts on ``drift_setup``'s three windows, with
+    the same first alarm bin where a window drifted (a quiet window's stray trips move
+    with Ginv, which rounding decides on this baseline: ROADMAP R7)."""
+    from repro_torch.fleet.telemetry.drift import DriftProbe
+
+    _, run = torch_control_cases.drift_world()
+    base = run(0)
+    windows = torch_control_cases.drift_windows()
+    sim_module.launches = sprt_module.launches = 0
+    card = DriftProbe(device=cuda).fit(base)
+    reports = {k: card.check(w) for k, w in windows.items()}
+    assert sim_module.launches == 2 + 3  # sim(D, D) and one sim(D, X) a call
+    assert sprt_module.launches >= 3
+    cpu = DriftProbe(device="cpu").fit(base)
+    for name, w in windows.items():
+        want, got = cpu.check(w), reports[name]
+        assert got.drifted == want.drifted, name
+        if want.drifted:
+            assert got.first_alarm_bin == want.first_alarm_bin, name
+
+
+def test_small_tune_on_the_card_equals_numpy(cuda):
+    import repro_torch.fleet as fm
+
+    for build in (torch_control_cases.static_scenario, torch_control_cases.portfolio_scenario):
+        want = fm.tune(build(backend="numpy"), fm.StaticPolicy.param_space(), fm.Objective(),
+                       fm.TuningBudget(10), seed=7)
+        got = fm.tune(build(backend="torch", device=cuda), fm.StaticPolicy.param_space(),
+                      fm.Objective(), fm.TuningBudget(10), seed=7)
+        assert got.winner.params == want.winner.params
+        assert got.sims_used == want.sims_used
+        assert torch_control_cases.same_evals(want.evals, got.evals)
+
+
+def test_controller_drift_case_on_the_card_gives_the_cpu_events(cuda):
+    cc = torch_control_cases
+    ctl, case = cc.drift_case(backend="numpy", device="cpu")
+    want = ctl.run(case)
+    sim_module.launches = sprt_module.launches = 0
+    ctl, case = cc.drift_case(backend="torch", device=cuda)
+    got = ctl.run(case)
+    assert sim_module.launches > 0 and sprt_module.launches > 0
+    assert cc.events_of(got) == cc.events_of(want)
+    assert got.est_factor == want.est_factor and got.active_params == want.active_params
+
+
+def test_column_oracle_on_the_card_equals_the_per_cell_numpy_build(cuda):
+    import repro_torch.fleet as fm
+
+    cc = torch_control_cases
+    svc = cc.service()
+    fl = cc.fleet(cc.PORT, svc)
+    kw = dict(objective=fm.Objective(min_attainment=0.9),
+              budget=fm.TuningBudget(n_candidates=5, init_seeds=1))
+    grid = cc.small_oracle_grid(cc.PORT, svc)
+    col = fm.build_oracle(grid, fl, fm.PIPolicy, fm.PIPolicy.param_space(), backend="torch",
+                          device=cuda, **kw)
+    cell = fm.build_oracle(grid, fl, fm.PIPolicy, fm.PIPolicy.param_space(), backend="numpy",
+                           **kw)
+    assert [c.to_json() for _, c in sorted(col.cells.items())] == \
+        [c.to_json() for _, c in sorted(cell.cells.items())]
+    assert col.build_info["sims_used"] < cell.build_info["sims_used"]
