@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Phases, in the order they run (numbered in the order they were added: 14 runs after
+9); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
@@ -46,6 +47,16 @@ Phases, in order; any failure exits non-zero:
 9. correctness of that path: decode after prefill(x[:-1]) equals prefill(x) at full
    width in float32, and the smoke config's logits and greedy tokens on the card
    equal those on the CPU;
+14. the MoE and SSM families: olmoe-1b-7b at full width (16 layers, 64 experts top 8,
+    6.92 B parameters, bf16, not cut) served twice at phase 8's shape, K2 launched 16
+    times a call and equal tokens from both calls, one prefill split by step beside its
+    FLOP bound and the decode step beside its bytes bound, then decode against prefill
+    in float32 at capacity 16; mamba2-130m at full width (24 SSD layers, not cut) served
+    twice, its prefill split and the same float32 check; jamba-v0.1-52b at full width
+    with its depth cut from 32 to 8 layers (one period of its block program, 13.3 B
+    parameters: the 52 B model does not fit one card), served once with one K2 launch;
+    and the four smoke configs' logits and greedy tokens on the card against the CPU;
+    then one JSON line of it;
 10. the fleet simulator's compiled backend (``backend="torch"``, its bin loop a CUDA
     graph) against the numpy engine: window-sum order; the golden scenarios of
     tests/test_jax_backend.py at its bar and the substep grid bit for bit; every policy
@@ -69,7 +80,7 @@ Phases, in order; any failure exits non-zero:
     build of one column, its query latency and its verify_oracle bound; then one JSON
     line of it, with the dispatches by path;
 13. one JSON line describing each kernel;
-14. last line: ``{"ok": true, "device": {...}}``.
+then the last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -681,83 +692,85 @@ def flash_kernel_phases(dev, card):
     torch.cuda.synchronize()
 
     print(f"== 7. flash attention at the serving and long shapes (CUDA events; {card})")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    timings = {}
-    for label, shape in (("serve", SERVE_SHAPE), ("prefill_32k", LONG_SHAPE)):
-        B, S, H, K, hd = shape
-        q, k, v = attention_inputs(shape, torch.bfloat16, g, dev)
-        out = gqa_attention(q, k, v, impl="cuda")
-        if label == "serve":
-            ref = gqa_attention(q, k, v, impl="ref")
-            rows = f"all {S} rows"
-        else:
-            # the last rows attend to every key; the plain version of the whole
-            # sequence is timed below, but held here on its tail alone
-            kx, vx = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
-            ref = mha_ref(q[:, -LONG_TAIL:], kx, vx, q_offset=S - LONG_TAIL)
-            out = out[:, -LONG_TAIL:]
-            rows = f"the last {LONG_TAIL} rows"
-            del kx, vx
-        err, ok = check_flash(out, ref, torch.bfloat16)
-        print(f"  {label} B,S,H,K,hd={shape} bf16 causal, {rows}: max_abs_err {err:.3e}")
-        expect(ok, f"flash kernel disagrees at the {label} shape: {err}")
-        del out, ref
-        iters = 10 if label == "serve" else 3
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        t = dict(
-            ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="cuda"), iters),
-            plain_ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="ref"), max(iters // 3, 1), 1),
-            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters),
-            max_abs_err=err,
-        )
-        t["bound_ms"], t["bound_by"] = attention_bound(*shape)
-        t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, bfloat16, causal"
-        timings[label] = t
-        print(
-            f"  {label}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-            f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
-            f"kernel at {t['bound_ms'] / t['ms']:.2%} of bound, "
-            f"{t['ms'] / t['library_ms']:.1f}x SDPA's time"
-        )
-        del q, k, v, qt, kt, vt
-
+    timings = {"serve": flash_at(SERVE_SHAPE, torch.bfloat16, g, dev, 10, "serve")}
+    # the last rows attend to every key; the plain version of the whole sequence is
+    # timed below, but held here on its tail alone
+    shape = LONG_SHAPE
+    _, S, H, K, _ = shape
+    q, k, v = attention_inputs(shape, torch.bfloat16, g, dev)
+    kx, vx = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+    ref = mha_ref(q[:, -LONG_TAIL:], kx, vx, q_offset=S - LONG_TAIL)
+    out = gqa_attention(q, k, v, impl="cuda")[:, -LONG_TAIL:]
+    del kx, vx
+    err, ok = check_flash(out, ref, torch.bfloat16)
+    print(
+        f"  prefill_32k B,S,H,K,hd={shape} bf16 causal, the last {LONG_TAIL} rows: "
+        f"max_abs_err {err:.3e}"
+    )
+    expect(ok, f"flash kernel disagrees at the prefill_32k shape: {err}")
+    del out, ref
+    timings["prefill_32k"] = flash_times(q, k, v, shape, torch.bfloat16, err, 3, "prefill_32k")
+    del q, k, v
     # The float32 instance at the serving shape: the FMA kernel that every float32
     # forward takes, beside SDPA in float32 and the bound at the CUDA cores' FMA rate.
-    shape = SERVE_SHAPE
-    B, S, H, K, hd = shape
-    q, k, v = attention_inputs(shape, torch.float32, g, dev)
-    err, ok = check_flash(
-        gqa_attention(q, k, v, impl="cuda"), gqa_attention(q, k, v, impl="ref"), torch.float32
-    )
-    print(f"  serve_f32 B,S,H,K,hd={shape} f32 causal, all {S} rows: max_abs_err {err:.3e}")
-    expect(ok, f"flash kernel disagrees at the float32 serving shape: {err}")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    t = dict(
-        ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="cuda"), 5),
-        plain_ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="ref"), 2, 1),
-        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-        max_abs_err=err,
-    )
-    t["bound_ms"], t["bound_by"] = attention_bound(*shape, flops=F32_FLOPS, elem_bytes=4)
-    t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, float32, causal"
-    timings["serve_f32"] = t
-    print(
-        f"  serve_f32: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-        f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}, float32 "
-        f"FMA 67 TFLOP/s), kernel at {t['bound_ms'] / t['ms']:.2%} of bound, "
-        f"{t['ms'] / t['library_ms']:.1f}x SDPA's time"
-    )
-    del q, k, v, qt, kt, vt
+    timings["serve_f32"] = flash_at(SERVE_SHAPE, torch.float32, g, dev, 5, "serve_f32")
     torch.cuda.empty_cache()
     return timings
+
+
+def flash_at(shape, dtype, g, dev, iters, label):
+    """K2 against its plain version on every row of causal ``dtype`` inputs at
+    ``shape``, then timed (``flash_times``). Returns the timings."""
+    from repro_torch.kernels import gqa_attention
+
+    q, k, v = attention_inputs(shape, dtype, g, dev)
+    err, ok = check_flash(
+        gqa_attention(q, k, v, impl="cuda"), gqa_attention(q, k, v, impl="ref"), dtype
+    )
+    print(
+        f"  {label} B,S,H,K,hd={shape} {str(dtype)[6:]} causal, all {shape[1]} rows: "
+        f"max_abs_err {err:.3e}"
+    )
+    expect(ok, f"flash kernel disagrees at the {label} shape {shape} {dtype}: {err}")
+    t = flash_times(q, k, v, shape, dtype, err, iters, label)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return t
+
+
+def flash_times(q, k, v, shape, dtype, err, iters, label):
+    """K2, its plain version and SDPA timed by CUDA events on the same causal inputs,
+    beside the bound (bf16 at the tensor cores' rate, float32 at the FMA rate)."""
+    from repro_torch.kernels import gqa_attention
+
+    B, S, H, K, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    t = dict(
+        ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="cuda"), iters),
+        plain_ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="ref"), max(iters // 3, 1), 1),
+        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters),
+        max_abs_err=err,
+    )
+    f32 = dtype == torch.float32
+    rate = dict(flops=F32_FLOPS, elem_bytes=4) if f32 else {}
+    t["bound_ms"], t["bound_by"] = attention_bound(*shape, **rate)
+    t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, {str(dtype)[6:]}, causal"
+    print(
+        f"  {label}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+        f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}"
+        f"{', float32 FMA 67 TFLOP/s' if f32 else ''}), kernel at {t['bound_ms'] / t['ms']:.2%} "
+        f"of bound, {t['ms'] / t['library_ms']:.1f}x SDPA's time"
+    )
+    return t
 
 
 def serving_phases(dev, card, flash_module):
     """Phases 8 and 9: the LM serving path at full width, its launch count and split,
     and its correctness checks. Returns the kernel's launch count."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import decode_greedy, generate
-    from repro_torch.models import Model, build_model
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
 
     cfg = get_config(SERVE_ARCH)
     print(f"== 8. serving {cfg.name} at full width on {card}")
@@ -807,25 +820,86 @@ def serving_phases(dev, card, flash_module):
     # decode(prefill(x[:-1]), x[-1]) == prefill(x) at the last token, at full width in
     # float32 (tests/test_models_smoke.py's bar): the flash kernel's prefill attention
     # against the plain decode attention, through all the layers.
-    cfg32 = cfg.replace(dtype="float32")
-    model = build_model(cfg32, dev, torch.Generator(device=dev).manual_seed(1))
+    err, ok, top = decode_vs_prefill(cfg.replace(dtype="float32"), dev)
+    print(
+        f"  full width float32, B 2, S 256: decode vs prefill max_abs_err {err:.3e} "
+        f"(bar 2e-4 + 2e-3|x|; max |logit| {top:.3f})"
+    )
+    expect(ok, f"decode disagrees with prefill at full width: {err}")
+    card_vs_cpu(SERVE_ARCH, dev)
+    return launches
+
+
+def moe_prefill_bound(cfg, B, S):
+    """Least time for an MoE prefill of B x S tokens (every layer attention + MoE, as
+    olmoe's): its operations at the bf16 rate. A layer: the router, the expert FFNs on
+    the T x k routed rows, the q/k/v/o projections and causal attention; then the last
+    token's unembedding. Returns (ms, operations, the gather path's expert operations),
+    the last over all E x C slots, filled or not, as that path computes them."""
+    from repro_torch.models.moe import capacity
+
+    T, d, E = B * S, cfg.d_model, cfg.n_experts
+    ffn = 2.0 * (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.moe_d_ff
+    experts = ffn * T * cfg.n_experts_per_tok
+    proj = 2.0 * T * d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    attn = 4.0 * B * cfg.n_heads * cfg.head_dim * S * (S + 1) / 2
+    router = 2.0 * T * d * E
+    flops = cfg.n_layers * (experts + proj + attn + router) + 2.0 * B * d * cfg.vocab_size
+    return flops / BF16_FLOPS * 1e3, flops, cfg.n_layers * ffn * E * capacity(cfg, T)
+
+
+def generate_cut(cfg, dev, batch, prompt_len, gen_tokens, seed=0):
+    """``serve.generate``'s steps for a config that no registered name gives (a depth
+    cut): weights and prompts from one generator seeded with ``seed``, a prefill into a
+    cache of ``prompt_len + gen_tokens``, then greedy decoding, each timed."""
+    from repro_torch.launch.serve import GenResult, decode_greedy
+    from repro_torch.models import build_model
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(cfg, dev, g)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(prompts, model.init_cache(batch, prompt_len + gen_tokens))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = decode_greedy(model, cache, logits, prompt_len, gen_tokens)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    tps = batch * (gen_tokens - 1) / t_decode
+    return GenResult(toks.cpu().numpy(), t_prefill, t_decode, tps)
+
+
+def decode_vs_prefill(cfg, dev, seed=1):
+    """decode(prefill(x[:-1]), x[-1]) against prefill(x) at B 2, S 256: max |error|,
+    whether it is within 2e-4 + 2e-3|x| (tests/test_models_smoke.py's bar), and
+    max |logit|."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, dev, torch.Generator(device=dev).manual_seed(seed))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=dev)
     _, full = model.prefill(x)
     cache, _ = model.prefill(x[:, :-1], model.init_cache(2, 256))
     _, dec = model.decode_step(cache, x[:, -1:], 255)
     err = float((dec - full).abs().max())
     ok = bool(((dec - full).abs() <= 2e-4 + 2e-3 * full.abs()).all())
-    print(
-        f"  full width float32, B 2, S 256: decode vs prefill max_abs_err {err:.3e} "
-        f"(bar 2e-4 + 2e-3|x|; max |logit| {float(full.abs().max()):.3f})"
-    )
-    expect(ok, f"decode disagrees with prefill at full width: {err}")
+    top = float(full.abs().max())
     del model, cache, full, dec
     torch.cuda.empty_cache()
+    return err, ok, top
 
-    # The smoke config in float32, the same weights and prompts on the card (flash
-    # kernel) and on the CPU (plain version).
-    small = get_config(SERVE_ARCH, smoke=True).replace(dtype="float32")
+
+def card_vs_cpu(arch, dev):
+    """The smoke config in float32, the same weights and prompts (B 4, S 96) on the card
+    (flash kernel) and on the CPU (plain version): prefill logits within
+    1e-4·max|logit| and 8 equal greedy tokens. Returns the logits' max |error|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import decode_greedy
+    from repro_torch.models import Model, build_model
+
+    small = get_config(arch, smoke=True).replace(dtype="float32")
     cpu = build_model(small, "cpu", torch.Generator().manual_seed(0))
     on_card = Model.from_numpy(small, cpu.to_numpy(), dev)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(0, small.vocab_size, (4, 96)))
@@ -835,11 +909,184 @@ def serving_phases(dev, card, flash_module):
         outs.append((logits.float().cpu(), decode_greedy(m, cache, logits, 96, 8).cpu()))
     (l_cpu, t_cpu), (l_card, t_card) = outs
     err, bar = float((l_card - l_cpu).abs().max()), 1e-4 * float(l_cpu.abs().max())
-    print(f"  smoke float32, card vs CPU prefill logits: max_abs_err {err:.3e} (bar {bar:.3e})")
-    print(f"  greedy tokens over 8 steps equal: {bool(torch.equal(t_card, t_cpu))}")
-    expect(err <= bar, "prefill logits on the card disagree with the CPU")
-    expect(torch.equal(t_card, t_cpu), "greedy tokens on the card differ from the CPU")
-    return launches
+    same = bool(torch.equal(t_card, t_cpu))
+    print(
+        f"  {small.name} float32, card vs CPU prefill logits max_abs_err {err:.3e} "
+        f"(bar {bar:.3e}); greedy tokens over 8 steps equal: {same}"
+    )
+    expect(err <= bar, f"{arch}: prefill logits on the card disagree with the CPU")
+    expect(same, f"{arch}: greedy tokens on the card differ from the CPU")
+    return err
+
+
+def families_phase(dev, card, flash_module):
+    """Phase 14: the MoE and SSM families. olmoe-1b-7b at full width (bf16, served
+    twice; its prefill split; K2 against its plain version at its attention shape; f32
+    decode against prefill at capacity 16), mamba2-130m at full width (the same, without
+    K2), jamba-v0.1-52b at full width with its depth cut to one period of 8 layers
+    (served once; K2 at its shape), and the four smoke configs card against CPU.
+    Returns the phase's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import decode_flops_bytes, generate
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    print(f"== 14. the MoE and SSM families on {card}")
+    rec = {"card": card, "serve": SERVE}
+
+    def serve(cfg, calls, run):
+        """``calls`` calls of ``run`` (a generate at SERVE's shape), K2's count set to
+        0 before each and read after it: it must equal the config's attention layers."""
+        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+        torch.cuda.reset_peak_memory_stats()
+        runs, launches = [], []
+        for _ in range(calls):
+            flash_module.launches = 0
+            runs.append(run())
+            launches.append(flash_module.launches)
+            torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        for i, r in enumerate(runs):
+            print(
+                f"  {cfg.name} call {i + 1}: prefill {r.prefill_s:.4f} s, "
+                f"decode {r.decode_s:.4f} s ({SERVE['gen_tokens'] - 1} steps), "
+                f"{r.tokens_per_s:.1f} tokens/s, "
+                f"K2 launches {launches[i]}"
+            )
+        print(f"  {cfg.name}: peak device memory {peak / 2**30:.2f} GiB")
+        toks = runs[-1].tokens
+        expect(toks.shape == (SERVE["batch"], SERVE["gen_tokens"]), f"tokens {toks.shape}")
+        expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
+        expect(
+            all(n == n_attn for n in launches),
+            f"{cfg.name}: K2 launched {launches} times, expected {n_attn} a call",
+        )
+        same = all(np.array_equal(r.tokens, toks) for r in runs)
+        if calls > 1:
+            print(f"  {cfg.name}: the {calls} calls gave the same tokens: {same}")
+            expect(same, f"{cfg.name}: two generate calls gave different tokens")
+        return dict(
+            prefill_s=[r.prefill_s for r in runs],
+            decode_s=[r.decode_s for r in runs],
+            tokens_per_s=[r.tokens_per_s for r in runs],
+            peak_gib=peak / 2**30,
+            k2_launches=launches,
+            parameters=cfg.param_counts()["total"],
+        )
+
+    def split_prefill(cfg):
+        """One prefill at SERVE's shape split by step (after a warm-up prefill); then
+        one decode step after it under torch.profiler: kernels launched, host
+        synchronisations and the card's busy share of the step's wall time."""
+        split, step = step_timer()
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = build_model(cfg, dev, g)
+        B, S = SERVE["batch"], SERVE["prompt_len"]
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+        model.prefill(prompts)
+        cache, logits = model.prefill(prompts, model.init_cache(B, S + 2), step=step)
+        expect(bool(torch.isfinite(logits).all()), f"{cfg.name}: prefill logits are not finite")
+        total = sum(split.values())
+        print(f"  {cfg.name}: one prefill split by step ({total:.4f} s in all):")
+        for name, sec in sorted(split.items(), key=lambda kv: -kv[1]):
+            print(f"    {name:18s} {sec:9.4f} s  {sec / total:6.1%}")
+        tok = logits[:, -1].argmax(-1)[:, None]
+        model.decode_step(cache, tok, S)  # warm-up
+        kernels, copies, syncs, busy = profile_counts(lambda: model.decode_step(cache, tok, S + 1))
+        n = sum(kernels.values())
+        print(
+            f"  {cfg.name}: a decode step launches {n} kernels ({n / cfg.n_layers:.1f} a layer), "
+            f"{copies} copies and memsets, {syncs} host synchronisations; the card is busy "
+            f"{busy:.1%} of its wall time under the profiler"
+        )
+        del model, cache, logits, prompts
+        torch.cuda.empty_cache()
+        return dict(split, total=total), dict(kernels=n, copies=copies, syncs=syncs, busy=busy)
+
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def k2_check(cfg):
+        """K2 against its plain version, and timed, at the shape this config's
+        prefill gives it: SERVE's batch and prompt, bf16, causal."""
+        shape = (SERVE["batch"], SERVE["prompt_len"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        return flash_at(shape, torch.bfloat16, g, dev, 10, f"{cfg.name} K2")
+
+    def f32_check(cfg):
+        err, ok, top = decode_vs_prefill(cfg, dev)
+        print(
+            f"  {cfg.name} full width float32 (capacity {cfg.capacity_factor:g}), B 2, S 256: "
+            f"decode vs prefill max_abs_err {err:.3e} (bar 2e-4 + 2e-3|x|; max |logit| {top:.3f})"
+        )
+        expect(ok, f"{cfg.name}: decode disagrees with prefill at full width: {err}")
+        return err
+
+    # olmoe-1b-7b: full width, not cut
+    cfg = get_config("olmoe-1b-7b")
+    print(
+        f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} of "
+        f"{cfg.head_dim} (qk-norm), {cfg.n_experts} experts top {cfg.n_experts_per_tok} of "
+        f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{cfg.param_counts()['total']:,.0f} parameters, not cut"
+    )
+    olmoe = serve(cfg, 2, lambda: generate(cfg.name, smoke=False, device=dev, **SERVE))
+    olmoe["split"], olmoe["decode_profile"] = split_prefill(cfg)
+    olmoe["k2"] = k2_check(cfg)
+    bound_ms, flops, gather_flops = moe_prefill_bound(cfg, SERVE["batch"], SERVE["prompt_len"])
+    ctx = SERVE["prompt_len"] + SERVE["gen_tokens"] // 2
+    d_flops, d_bytes = decode_flops_bytes(cfg, SERVE["batch"], ctx)
+    d_bound = max(d_flops / BF16_FLOPS, d_bytes / HBM_BYTES_PER_S) * 1e3
+    step_ms = [s / (SERVE["gen_tokens"] - 1) * 1e3 for s in olmoe["decode_s"]]
+    print(
+        f"  {cfg.name}: prefill bound {bound_ms:.2f} ms ({flops / 1e12:.2f} TFLOP at bf16 "
+        f"989 TFLOP/s; the experts on the T x k routed rows; the gather path's E x C slots "
+        f"take {gather_flops / 1e12:.2f} TFLOP of expert work, "
+        f"{gather_flops / BF16_FLOPS * 1e3:.2f} ms) against "
+        f"{min(olmoe['prefill_s']) * 1e3:.2f} ms measured; decode bound {d_bound:.2f} ms a step "
+        f"({d_bytes / 1e9:.2f} GB at 3.35 TB/s) against {min(step_ms):.2f} ms"
+    )
+    olmoe.update(
+        prefill_bound_ms=bound_ms,
+        gather_expert_ms=gather_flops / BF16_FLOPS * 1e3,
+        decode_bound_ms=d_bound,
+        decode_step_ms=step_ms,
+    )
+    olmoe["f32_decode_vs_prefill"] = f32_check(cfg.replace(dtype="float32", capacity_factor=16.0))
+    rec["olmoe-1b-7b"] = olmoe
+
+    # mamba2-130m: full width, not cut
+    cfg = get_config("mamba2-130m")
+    print(
+        f"  {cfg.name}: {cfg.n_layers} SSD layers, d_model {cfg.d_model}, {cfg.ssm_nheads} heads "
+        f"of {cfg.ssm_headdim}, d_state {cfg.ssm_state}, chunk {cfg.ssd_chunk}, "
+        f"{cfg.param_counts()['total']:,.0f} parameters, not cut"
+    )
+    mamba = serve(cfg, 2, lambda: generate(cfg.name, smoke=False, device=dev, **SERVE))
+    mamba["split"], mamba["decode_profile"] = split_prefill(cfg)
+    mamba["f32_decode_vs_prefill"] = f32_check(cfg.replace(dtype="float32"))
+    rec["mamba2-130m"] = mamba
+
+    # jamba-v0.1-52b: 103 GB in bf16 does not fit one card; one period of 8 layers does
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=8)
+    print(
+        f"  {cfg.name}: depth cut {full.n_layers} -> {cfg.n_layers} (one period: 7 SSD mixers "
+        f"with {cfg.ssm_nheads} heads, 1 attention layer of {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"4 MoE FFNs of {cfg.n_experts} x {cfg.moe_d_ff}, 4 dense FFNs of {cfg.d_ff}), "
+        f"{cfg.param_counts()['total']:,.0f} parameters (of {full.param_counts()['total']:,.0f})"
+    )
+    jamba = serve(cfg, 1, lambda: generate_cut(cfg, dev, **SERVE))
+    jamba["depth_cut"] = [full.n_layers, cfg.n_layers]
+    jamba["k2"] = k2_check(cfg)
+    rec["jamba-v0.1-52b"] = jamba
+
+    rec["card_vs_cpu"] = {
+        arch: card_vs_cpu(arch, dev)
+        for arch in ("olmoe-1b-7b", "granite-moe-3b-a800m", "mamba2-130m", "jamba-v0.1-52b")
+    }
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the families phase took {rec['phase_s']:.1f} s")
+    return rec
 
 
 def checked(label, fn, *args):
@@ -1827,6 +2074,11 @@ def main():
     flash_timings = flash_kernel_phases(dev, card)
     flash_launches = serving_phases(dev, card, flash_module)
 
+    # ------------------------------------------ 14. the MoE and SSM families
+    families = families_phase(dev, card, flash_module)
+    k2_families = [families[arch]["k2"] for arch in ("olmoe-1b-7b", "jamba-v0.1-52b")]
+    print(json.dumps({"families": families}))
+
     # ------------------------------------------------------------ 10. fleet
     fleet = fleet_phase(dev, card)
     print(json.dumps({"fleet": fleet}))
@@ -1870,8 +2122,12 @@ def main():
             "source": "src/repro_torch/kernels/attention/csrc/flash.cu",
             "replaces": "src/repro/kernels/attention/flash.py:63",
             "launches": flash_launches,
+            "families_launches": {
+                arch: families[arch]["k2_launches"] for arch in ("olmoe-1b-7b", "jamba-v0.1-52b")
+            },
             **flash_timings["serve"],
-            "max_abs_err": max(t["max_abs_err"] for t in flash_timings.values()),
+            "max_abs_err": max(t["max_abs_err"] for t in [*flash_timings.values(), *k2_families]),
+            "families": dict(zip(("olmoe-1b-7b", "jamba-v0.1-52b"), k2_families)),
             "prefill_32k": flash_timings["prefill_32k"],
             "serve_f32": flash_timings["serve_f32"],
         },

@@ -1,7 +1,9 @@
 """Batched serving driver: prefill prompts into a KV cache, then greedy decode.
-Counterpart of the JAX package's ``launch/serve.py`` for the dense family.
+Counterpart of the JAX package's ``launch/serve.py`` for the decoder-only families
+(dense, MoE, SSM, hybrid).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --full \\
         --batch 4 --prompt-len 2048 --tokens 32
 """

@@ -18,10 +18,10 @@ from repro_torch.models import layers, transformer
 
 
 class Model(nn.Module):
-    """The dense decoder-only LM. ``Model(cfg, device)`` allocates the parameters
-    uninitialised on ``device`` (None -> cuda); ``build_model`` draws them,
-    ``from_numpy`` copies them in. The two together stand for the reference's
-    ``init_lm``."""
+    """The decoder-only LM (dense, MoE, SSM and hybrid families). ``Model(cfg, device)``
+    allocates the parameters uninitialised on ``device`` (None -> cuda); ``build_model``
+    draws them, ``from_numpy`` copies them in. The two together stand for the
+    reference's ``init_lm``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -64,15 +64,16 @@ class Model(nn.Module):
         return transformer.cache_specs(self.cfg, batch, max_seq)
 
     def init_cache(self, batch: int, max_seq: int):
-        """Zero cache in the reference's tree: per period position {"attn": {"k", "v"}},
-        each (n_stack, B, K, max_seq, hd)."""
+        """Zero cache in the reference's tree (``cache_specs``): per period position
+        {"attn": {"k", "v"}} or {"ssm": {"conv", "state"}}, each stacked over n_stack;
+        prefill and decode fill it in place."""
 
         def zeros(spec):
             return torch.zeros(spec[0], dtype=spec[1], device=self.device)
 
         return tuple(
-            {"attn": {n: zeros(s) for n, s in e["attn"].items()}}
-            for e in self.cache_specs(batch, max_seq)
+            {kind: {n: zeros(s) for n, s in e.items()} for kind, e in entry.items()}
+            for entry in self.cache_specs(batch, max_seq)
         )
 
     # ---- the reference's parameter tree ----

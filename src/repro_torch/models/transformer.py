@@ -1,4 +1,4 @@
-"""Layer-stack engine: the dense path of the JAX package's ``models/transformer.py``.
+"""Layer-stack engine: the decoder-only path of the JAX package's ``models/transformer.py``.
 
 Every architecture is described by a *block program*: the periodic pattern of
 (mixer, ffn, cross) sublayers, ``n_layers = n_stack * period`` deep. The reference
@@ -7,10 +7,10 @@ with ``lax.scan``; here the layers are an ``nn.ModuleList`` in execution order
 (layer ``s * period + j`` is stack entry ``s`` of position ``j``) and a Python loop
 runs them.
 
-Ported: an ``attn`` mixer with a ``dense`` FFN, in modes prefill and decode, which
-is every config of the dense family. MoE FFNs, SSM mixers (ssm, hybrid) and
-cross-attention (enc-dec) raise ``NotImplementedError``; ``forward_train`` and
-``loss_fn`` wait for the training slice.
+Ported: mixers ``attn`` and ``ssm`` with FFNs ``dense``, ``moe`` or none, in modes
+prefill and decode, which covers the dense, MoE, SSM and hybrid families. Cross-
+attention (enc-dec) raises ``NotImplementedError``; ``forward_train`` and ``loss_fn``
+wait for the training slice.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba, moe
 from repro_torch.models.layers import _run
 
 # ---------------------------------------------------------------------------
@@ -54,49 +54,58 @@ def block_program(cfg: ArchConfig) -> list[dict]:
     return prog
 
 
-_WAITS = {
-    "ssm": "the SSM mixer (models/mamba.py) is not ported yet: ROADMAP Queue 1, item 13",
-    "moe": "the MoE FFN (models/moe.py) is not ported yet: ROADMAP Queue 1, item 13",
-    "cross": "enc-dec cross-attention is not ported yet: ROADMAP Queue 1, item 13",
-}
-
-
 def check_ported(cfg: ArchConfig) -> list[dict]:
-    """The block program, or NotImplementedError naming what waits for a later slice."""
+    """The block program, or NotImplementedError for the enc-dec family."""
     prog = block_program(cfg)
-    for entry in prog:
-        for what in (entry["mixer"], entry["ffn"], "cross" if entry["cross"] else None):
-            if what in _WAITS:
-                raise NotImplementedError(f"{cfg.name}: {_WAITS[what]}")
+    if any(entry["cross"] for entry in prog):
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec cross-attention is not ported yet: ROADMAP Queue 1, item 6b"
+        )
     return prog
 
 
 # ---------------------------------------------------------------------------
-# one block (the reference's _apply_block_pos for an attn mixer and a dense FFN)
+# one block (the reference's _apply_block_pos without cross-attention)
 # ---------------------------------------------------------------------------
 
 
 class Block(nn.Module):
-    """One layer: x + attention(norm1(x)), then x + mlp(norm2(x))."""
+    """One layer: x + mixer(norm1(x)), then x + ffn(norm2(x)) when it has an FFN.
+    The mixer is attention or SSD, the FFN a dense MLP, an MoE or none."""
 
     def __init__(self, cfg: ArchConfig, entry: dict, device):
         super().__init__()
         self.norm1 = layers.Norm(cfg, cfg.d_model, device)
-        self.mixer = layers.Attention(cfg, device)
-        self.has_ffn = entry["ffn"] == "dense"
-        if self.has_ffn:
+        self.kind = entry["mixer"]
+        if self.kind == "attn":
+            self.mixer = layers.Attention(cfg, device)
+        else:
+            self.mixer = mamba.SSD(cfg, device)
+        self.ffn_kind = entry["ffn"]
+        if self.ffn_kind:
             self.norm2 = layers.Norm(cfg, cfg.d_model, device)
-            self.ffn = layers.MLP(cfg, device)
+            self.ffn = layers.MLP(cfg, device) if self.ffn_kind == "dense" else moe.MoE(cfg, device)
 
     def forward(self, x, *, mode: str, positions=None, cache=None, pos=None, step=_run):
-        """mode: prefill | decode. ``cache`` is this layer's {"k", "v"}, updated in place."""
+        """mode: prefill | decode. ``cache`` is this layer's {"attn": {"k", "v"}} or
+        {"ssm": {"conv", "state"}}, updated in place."""
         h = step("norms", lambda: self.norm1(x))
-        attn_mode = "causal" if mode == "prefill" else "decode"
-        out, _ = self.mixer(h, mode=attn_mode, positions=positions, cache=cache, pos=pos, step=step)
+        if self.kind == "attn":
+            attn_mode = "causal" if mode == "prefill" else "decode"
+            out, _ = self.mixer(
+                h, mode=attn_mode, positions=positions, cache=cache["attn"], pos=pos, step=step
+            )
+        else:
+            out, _ = self.mixer(h, cache=cache["ssm"], pos=pos, step=step)
         x = x + out
-        if self.has_ffn:
+        if self.ffn_kind:
             h = step("norms", lambda: self.norm2(x))
-            x = x + step("mlp", lambda: self.ffn(h))
+            if self.ffn_kind == "dense":
+                x = x + step("mlp", lambda: self.ffn(h))
+            else:
+                # the gather path: the reference's decode asks for it (moe_impl="gather"),
+                # and without a mesh its prefill takes it too
+                x = x + self.ffn(h, step=step)[0]
         return x
 
 
@@ -106,9 +115,13 @@ class Block(nn.Module):
 
 
 def _layer_cache(cache, layer: int, period: int):
-    """Layer ``layer``'s {"k", "v"}: views into the stacked cache tree."""
-    c = cache[layer % period]["attn"]
-    return {"k": c["k"][layer // period], "v": c["v"][layer // period]}
+    """Layer ``layer``'s entry, {"attn": {"k", "v"}} or {"ssm": {"conv", "state"}}:
+    views into the stacked cache tree."""
+    s = layer // period
+    return {
+        kind: {name: t[s] for name, t in entry.items()}
+        for kind, entry in cache[layer % period].items()
+    }
 
 
 def forward_prefill(model, tokens, cache, step=_run):
@@ -140,7 +153,13 @@ def decode_step(model, cache, tokens, pos: int):
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_seq: int):
+    """Per period position, {"attn": {"k", "v"}} of (n_stack, B, K, max_seq, hd) in the
+    working dtype, or {"ssm": {"conv", "state"}} of (n_stack, B, W - 1, cch) in the
+    working dtype and (n_stack, B, H, N, P) in float32."""
     prog = check_ported(cfg)
     n_stack = cfg.n_layers // len(prog)
     kv = ((n_stack, batch, cfg.n_kv_heads, max_seq, cfg.head_dim), layers.working_dtype(cfg))
-    return tuple({"attn": {"k": kv, "v": kv}} for _ in prog)
+    ssm = {n: ((n_stack, *shape), dt) for n, (shape, dt) in mamba.cache_spec(cfg, batch).items()}
+    return tuple(
+        {"attn": {"k": kv, "v": kv}} if e["mixer"] == "attn" else {"ssm": dict(ssm)} for e in prog
+    )

@@ -272,6 +272,89 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(t_card, t_cpu)
 
 
+@pytest.mark.parametrize(
+    "arch", ["olmoe-1b-7b", "granite-moe-3b-a800m", "mamba2-130m", "jamba-v0.1-52b"]
+)
+def test_families_serve_on_the_card(cuda, arch):
+    """One K2 launch a prefill for each attention layer (none for mamba2), and the
+    same tokens on a second call."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config(arch, smoke=True)
+    flash_module.launches = 0
+    r = generate(arch, batch=2, prompt_len=40, gen_tokens=4, device=cuda)
+    assert flash_module.launches == sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    again = generate(arch, batch=2, prompt_len=40, gen_tokens=4, device=cuda)
+    np.testing.assert_array_equal(again.tokens, r.tokens)
+
+
+def _moe_case(dtype, T=512):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b", smoke=True).replace(
+        n_experts=64, n_experts_per_tok=8, d_model=256, moe_d_ff=128, dtype=dtype
+    )
+    mod = moe.MoE(cfg, "cpu")
+    mod.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(2, T // 2, 256, generator=torch.Generator().manual_seed(1)).to(mod.w_up.dtype)
+    return cfg, mod, x
+
+
+def test_moe_combine_is_deterministic_on_the_card(cuda):
+    """bf16 at olmoe's 64 experts top 8: two runs on the card give the same bits, and the
+    combine (summed in ascending expert id, no atomics) gives the CPU's bits on the
+    same expert outputs."""
+    from repro_torch.models import moe
+
+    cfg, mod, x = _moe_case("bfloat16")
+    mod = mod.to(cuda)
+    y1, _ = mod(x.to(cuda))
+    y2, _ = mod(x.to(cuda))
+    assert torch.equal(y1, y2)
+    T, k = x.shape[0] * x.shape[1], cfg.n_experts_per_tok
+    g = torch.Generator().manual_seed(2)
+    top_i = torch.stack([torch.randperm(64, generator=g)[:k] for _ in range(T)])
+    C = moe.capacity(cfg, T)
+    _, _, slot = moe._group(top_i.reshape(-1), torch.ones(T * k), T, 64, C)
+    yg = torch.cat([torch.randn(64 * C, 256, generator=g), torch.zeros(1, 256)]).bfloat16()
+    on_cpu = moe._combine(yg, slot, top_i, T)
+    on_card = moe._combine(yg.to(cuda), slot.to(cuda), top_i.to(cuda), T)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_apply_moe_on_the_card_matches_the_cpu(cuda):
+    cfg, mod, x = _moe_case("float32")
+    y_cpu, aux_cpu = mod(x)
+    y_card, aux_card = mod.to(cuda)(x.to(cuda))
+    torch.testing.assert_close(y_card.cpu(), y_cpu, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(aux_card.cpu(), aux_cpu, atol=1e-5, rtol=1e-4)
+
+
+def test_apply_ssd_on_the_card_matches_the_cpu(cuda):
+    """float32, at mamba2-130m's own widths: prefill with its cache, then a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+
+    cfg = get_config("mamba2-130m").replace(dtype="float32")
+    ssd = mamba.SSD(cfg, "cpu")
+    ssd.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 300, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda):
+        m = ssd.to(dev)
+        cache = {
+            n: torch.zeros(sh, dtype=dt, device=dev)
+            for n, (sh, dt) in mamba.cache_spec(cfg, 2).items()
+        }
+        y, _ = m(x[:, :299].to(dev), cache=cache)
+        y_dec, _ = m(x[:, 299:].to(dev), cache=cache, pos=299)
+        outs.append([t.cpu() for t in (y, y_dec, cache["conv"], cache["state"])])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
 # ------------------- the fleet simulator's compiled backend -------------------
 # The CPU tests' scenarios (tests/test_torch_fleet_backend.py) on the card, held
 # against the numpy engine at the same bars.

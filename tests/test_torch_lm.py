@@ -1,9 +1,11 @@
-"""The port's LM serving path (configs, layers, the dense block engine, the model and
-``launch/serve.py``) against the JAX package, on the CPU.
+"""The port's LM serving path (configs, layers, the dense family through the block
+engine, the model and ``launch/serve.py``) against the JAX package, on the CPU.
 
 Weights move across as the reference's ``init_values`` tree in numpy
 (``Model.from_numpy``); prompts are numpy draws from a seed. The reference calls are
-jitted and shared per architecture through a module-scoped fixture.
+jitted and shared per architecture through a module-scoped fixture
+(``torch_lm_cases.carried_fixture``); ``test_torch_families.py`` runs the other
+families through the same fixture.
 """
 
 import dataclasses
@@ -22,7 +24,6 @@ from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
 from repro.configs import model_flops as jax_model_flops
 from repro.configs import shape_applicable as jax_shape_applicable
-from repro.distributed import is_box, make_rules
 from repro.launch.serve import decode_flops_bytes as jax_decode_flops_bytes
 from repro.models import build_model as jax_build_model
 from repro.models import layers as jl
@@ -30,20 +31,17 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config, model_flops, shape
 from repro_torch.launch import serve
 from repro_torch.models import Model, build_model
 from repro_torch.models import layers
+from torch_lm_cases import (
+    RULES,
+    carried_fixture,
+    check_decode_matches_prefill,
+    check_greedy,
+    check_prefill_and_decode,
+    f32,
+)
 
-RULES = make_rules(None)
 CARRIED = ["minitron-4b", "chatglm3-6b", "granite-20b"]
-NOT_PORTED = [
-    "olmoe-1b-7b",
-    "granite-moe-3b-a800m",
-    "mamba2-130m",
-    "jamba-v0.1-52b",
-    "seamless-m4t-large-v2",
-]
-B, S, N_GREEDY = 2, 16, 8
-# Prefill and decode of the same weights in float32: the two packages sum in other
-# orders (about 2.5e-6 seen on logits of size ~4), so 1e-4 absolute and relative.
-TOL = 1e-4
+NOT_PORTED = ["seamless-m4t-large-v2"]
 
 
 def _t(a):
@@ -152,70 +150,15 @@ def test_mlp_matches_reference(mlp_type):
 
 # ------------------------------ the serving path ----------------------------
 
-
-def _f32(arch):
-    return get_config(arch, smoke=True).replace(dtype="float32")
-
-
-@pytest.fixture(scope="module", params=CARRIED)
-def carried(request):
-    """One architecture's reference run on shared weights and prompts: prefill of the
-    first S - 1 tokens, one decode step on the padded cache, a greedy loop of N_GREEDY
-    tokens, and prefill of all S tokens in the config's own bf16."""
-    arch = request.param
-    jcfg = jax_get_config(arch, smoke=True).replace(dtype="float32")
-    jm = jax_build_model(jcfg)
-    params = jax.tree.map(np.asarray, jm.init_values(jax.random.PRNGKey(1)))
-    toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
-    prefill = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, RULES))
-    decode = jax.jit(lambda p, c, t, pos: jm.decode_step(p, c, t, pos, RULES))
-    cache, logits = prefill(params, toks[:, : S - 1])
-    specs = jm.cache_specs(B, S - 1 + N_GREEDY)
-    padded = jax.tree.map(
-        lambda c, sp: jnp.pad(c, [(0, t - s) for s, t in zip(c.shape, sp.value.shape)]),
-        cache,
-        specs,
-        is_leaf=is_box,
-    )
-    _, logits_dec = decode(params, padded, toks[:, S - 1 :], S - 1)
-    greedy, c = [jnp.argmax(logits[:, -1], -1)], padded
-    for i in range(N_GREEDY - 1):
-        c, lg = decode(params, c, greedy[-1][:, None], S - 1 + i)
-        greedy.append(jnp.argmax(lg[:, -1], -1))
-    bf16 = jax_build_model(jax_get_config(arch, smoke=True))
-    _, logits_bf16 = jax.jit(lambda p, t: bf16.prefill(p, {"tokens": t}, RULES))(params, toks)
-    return dict(
-        arch=arch,
-        params=params,
-        toks=toks,
-        cache=jax.tree.map(np.asarray, cache),
-        logits=np.asarray(logits),
-        logits_dec=np.asarray(logits_dec),
-        greedy=np.stack([np.asarray(g) for g in greedy], 1),
-        logits_bf16=np.asarray(logits_bf16, np.float32),
-    )
+carried = carried_fixture(CARRIED)
 
 
 def test_prefill_and_decode_match_reference(carried):
-    model = Model.from_numpy(_f32(carried["arch"]), carried["params"], "cpu")
-    toks = torch.from_numpy(carried["toks"]).long()
-    cache = model.init_cache(B, S - 1 + N_GREEDY)
-    cache, logits = model.prefill(toks[:, : S - 1], cache)
-    np.testing.assert_allclose(logits.numpy(), carried["logits"], atol=TOL, rtol=TOL)
-    for name in ("k", "v"):
-        got = cache[0]["attn"][name][..., : S - 1, :].numpy()
-        np.testing.assert_allclose(got, carried["cache"][0]["attn"][name], atol=TOL, rtol=TOL)
-        assert not cache[0]["attn"][name][..., S - 1 :, :].any()  # not written yet
-    _, logits_dec = model.decode_step(cache, toks[:, S - 1 :], S - 1)
-    np.testing.assert_allclose(logits_dec.numpy(), carried["logits_dec"], atol=TOL, rtol=TOL)
+    check_prefill_and_decode(carried)
 
 
 def test_greedy_tokens_match_reference(carried):
-    model = Model.from_numpy(_f32(carried["arch"]), carried["params"], "cpu")
-    toks = torch.from_numpy(carried["toks"][:, : S - 1]).long()
-    cache, logits = model.prefill(toks, model.init_cache(B, S - 1 + N_GREEDY))
-    out = serve.decode_greedy(model, cache, logits, S - 1, N_GREEDY)
-    np.testing.assert_array_equal(out.numpy(), carried["greedy"])
+    check_greedy(carried)
 
 
 def test_bf16_prefill_is_near_reference(carried):
@@ -243,13 +186,7 @@ def test_decode_matches_prefill(arch):
     """decode(prefill(x[:-1]), x[-1]) == prefill(x) at the last token, at
     tests/test_models_smoke.py's bar; this holds the prefill attention (the flash
     kernel's path) against the plain decode attention."""
-    cfg = _f32(arch)
-    model = build_model(cfg, "cpu", torch.Generator().manual_seed(1))
-    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 32)))
-    _, full = model.prefill(toks)
-    cache, _ = model.prefill(toks[:, :-1], model.init_cache(2, 32))
-    _, dec = model.decode_step(cache, toks[:, -1:], 31)
-    np.testing.assert_allclose(full.numpy(), dec.numpy(), atol=2e-4, rtol=2e-3)
+    check_decode_matches_prefill(f32(arch))
 
 
 def test_to_numpy_round_trips():
@@ -286,9 +223,9 @@ def test_init_follows_the_reference_scheme():
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_families_not_ported_raise(arch):
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6b"):
         build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6b"):
         serve.generate(arch, device="cpu")
 
 
