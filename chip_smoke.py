@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order they run (numbered in the order they were added: 14 runs after
-9); any failure exits non-zero:
+Phases, in the order they run (numbered in the order they were added: 14 and 15 run
+after 9); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
@@ -57,6 +57,16 @@ Phases, in the order they run (numbered in the order they were added: 14 runs af
     parameters: the 52 B model does not fit one card), served once with one K2 launch;
     and the four smoke configs' logits and greedy tokens on the card against the CPU;
     then one JSON line of it;
+15. the enc-dec family: K2 against its plain version at the encoder's shape (B 4, 4096
+    frames, 16/16 heads of 64, bf16, non-causal) and the decoder's (B 4, S 512, causal),
+    each timed beside the plain version, SDPA and the bound; seamless-m4t-large-v2 at
+    full width (24 encoder and 24 decoder layers, 1.63 B parameters, bf16, not cut)
+    served twice with 4 prompts of 512 tokens over 4096 random frames and 32 new tokens,
+    K2 launched 48 times a call (each encoder and decoder layer once; decode none) and
+    equal tokens from both calls, one prefill split by step beside its FLOP bound, a
+    decode step beside its bytes bound with its kernels and busy share (profiler); f32
+    decode against prefill at full width; the smoke config card against CPU; then one
+    JSON line of it;
 10. the fleet simulator's compiled backend (``backend="torch"``, its bin loop a CUDA
     graph) against the numpy engine: window-sum order; the golden scenarios of
     tests/test_jax_backend.py at its bar and the substep grid bit for bit; every policy
@@ -90,6 +100,7 @@ import importlib.util
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 import os
 import subprocess
 import sys
@@ -149,6 +160,11 @@ LONG_SHAPE = (1, 32768, 24, 8, 128)  # prefill_32k's sequence (configs/base.py),
 LONG_TAIL = 1024  # query rows of the long shape checked against the plain version
 SERVE_ARCH = "minitron-4b"
 SERVE = dict(batch=4, prompt_len=2048, gen_tokens=32)
+# Phase 15: enc_memory_len (4096) frames of source and a prompt of 4096 // 8 decoder
+# tokens (configs/base.py's dec_len_fraction): a long source and a short target, as in
+# speech-to-text.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_SERVE = dict(batch=4, prompt_len=512, gen_tokens=32)
 # The fleet phase's tuning rounds: benchmarks/tune_controller.py's flash-crowd
 # predictive-tuning scenario, raced as (candidates, seeds, seconds at dt 5 s, tile).
 # 24 x 12 x 720 bins is benchmarks/sim_perf.py's headline; 512 at tile 512 is the
@@ -371,11 +387,12 @@ def step_timer():
     return split, step
 
 
-def attention_bound(B, S, H, K, hd, flops=BF16_FLOPS, elem_bytes=2):
-    """Least time for causal attention: 4·B·H·hd·S(S+1)/2 operations at ``flops`` (the
-    bf16 tensor core rate by default; float32 runs on the CUDA cores' FMA), or q, k, v
-    read once and o written once, whichever is longer."""
-    t_ops = 4.0 * B * H * hd * S * (S + 1) / 2 / flops
+def attention_bound(B, S, H, K, hd, flops=BF16_FLOPS, elem_bytes=2, causal=True):
+    """Least time for attention: 4·B·H·hd·S(S+1)/2 operations when causal, 4·B·H·hd·S²
+    when not, at ``flops`` (the bf16 tensor core rate by default; float32 runs on the
+    CUDA cores' FMA), or q, k, v read once and o written once, whichever is longer."""
+    pairs = S * (S + 1) / 2 if causal else S * S
+    t_ops = 4.0 * B * H * hd * pairs / flops
     t_bytes = elem_bytes * B * S * hd * (2 * H + 2 * K) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -718,44 +735,50 @@ def flash_kernel_phases(dev, card):
     return timings
 
 
-def flash_at(shape, dtype, g, dev, iters, label):
-    """K2 against its plain version on every row of causal ``dtype`` inputs at
-    ``shape``, then timed (``flash_times``). Returns the timings."""
+def flash_at(shape, dtype, g, dev, iters, label, causal=True):
+    """K2 against its plain version on every row of ``dtype`` inputs at ``shape``,
+    causal or not, then timed (``flash_times``). Returns the timings."""
     from repro_torch.kernels import gqa_attention
 
     q, k, v = attention_inputs(shape, dtype, g, dev)
     err, ok = check_flash(
-        gqa_attention(q, k, v, impl="cuda"), gqa_attention(q, k, v, impl="ref"), dtype
+        gqa_attention(q, k, v, causal=causal, impl="cuda"),
+        gqa_attention(q, k, v, causal=causal, impl="ref"),
+        dtype,
     )
+    mode = "causal" if causal else "non-causal"
     print(
-        f"  {label} B,S,H,K,hd={shape} {str(dtype)[6:]} causal, all {shape[1]} rows: "
+        f"  {label} B,S,H,K,hd={shape} {str(dtype)[6:]} {mode}, all {shape[1]} rows: "
         f"max_abs_err {err:.3e}"
     )
-    expect(ok, f"flash kernel disagrees at the {label} shape {shape} {dtype}: {err}")
-    t = flash_times(q, k, v, shape, dtype, err, iters, label)
+    expect(ok, f"flash kernel disagrees at the {label} shape {shape} {dtype} {mode}: {err}")
+    t = flash_times(q, k, v, shape, dtype, err, iters, label, causal)
     del q, k, v
     torch.cuda.empty_cache()
     return t
 
 
-def flash_times(q, k, v, shape, dtype, err, iters, label):
-    """K2, its plain version and SDPA timed by CUDA events on the same causal inputs,
-    beside the bound (bf16 at the tensor cores' rate, float32 at the FMA rate)."""
+def flash_times(q, k, v, shape, dtype, err, iters, label, causal=True):
+    """K2, its plain version and SDPA timed by CUDA events on the same inputs, causal or
+    not, beside the bound (bf16 at the tensor cores' rate, float32 at the FMA rate)."""
     from repro_torch.kernels import gqa_attention
 
     B, S, H, K, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     t = dict(
-        ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="cuda"), iters),
-        plain_ms=cuda_ms(lambda: gqa_attention(q, k, v, impl="ref"), max(iters // 3, 1), 1),
-        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters),
+        ms=cuda_ms(lambda: gqa_attention(q, k, v, causal=causal, impl="cuda"), iters),
+        plain_ms=cuda_ms(
+            lambda: gqa_attention(q, k, v, causal=causal, impl="ref"), max(iters // 3, 1), 1
+        ),
+        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True), iters),
         max_abs_err=err,
     )
     f32 = dtype == torch.float32
     rate = dict(flops=F32_FLOPS, elem_bytes=4) if f32 else {}
-    t["bound_ms"], t["bound_by"] = attention_bound(*shape, **rate)
-    t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, {str(dtype)[6:]}, causal"
+    t["bound_ms"], t["bound_by"] = attention_bound(*shape, **rate, causal=causal)
+    mode = "causal" if causal else "non-causal"
+    t["shape"] = f"q {B}x{S}x{H}x{hd}, k/v {B}x{S}x{K}x{hd}, {str(dtype)[6:]}, {mode}"
     print(
         f"  {label}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
         f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}"
@@ -872,29 +895,35 @@ def generate_cut(cfg, dev, batch, prompt_len, gen_tokens, seed=0):
 
 
 def decode_vs_prefill(cfg, dev, seed=1):
-    """decode(prefill(x[:-1]), x[-1]) against prefill(x) at B 2, S 256: max |error|,
-    whether it is within 2e-4 + 2e-3|x| (tests/test_models_smoke.py's bar), and
-    max |logit|."""
+    """decode(prefill(x[:-1]), x[-1]) against prefill(x) at B 2, S 256 (an enc-dec
+    config's two prefills encode the same frames, ``enc_memory_len`` of them): max
+    |error|, whether it is within 2e-4 + 2e-3|x| (tests/test_models_smoke.py's bar),
+    and max |logit|."""
     from repro_torch.models import build_model
 
     model = build_model(cfg, dev, torch.Generator(device=dev).manual_seed(seed))
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=dev)
-    _, full = model.prefill(x)
-    cache, _ = model.prefill(x[:, :-1], model.init_cache(2, 256))
+    src = {}
+    if cfg.encdec:
+        shape = (2, cfg.enc_memory_len, cfg.d_model)
+        src["frames"] = torch.randn(shape, generator=g, device=dev)
+    _, full = model.prefill(x, **src)
+    cache, _ = model.prefill(x[:, :-1], model.init_cache(2, 256), **src)
     _, dec = model.decode_step(cache, x[:, -1:], 255)
     err = float((dec - full).abs().max())
     ok = bool(((dec - full).abs() <= 2e-4 + 2e-3 * full.abs()).all())
     top = float(full.abs().max())
-    del model, cache, full, dec
+    del model, cache, full, dec, src
     torch.cuda.empty_cache()
     return err, ok, top
 
 
 def card_vs_cpu(arch, dev):
-    """The smoke config in float32, the same weights and prompts (B 4, S 96) on the card
-    (flash kernel) and on the CPU (plain version): prefill logits within
-    1e-4·max|logit| and 8 equal greedy tokens. Returns the logits' max |error|."""
+    """The smoke config in float32, the same weights and prompts (B 4, S 96; an enc-dec
+    config's frames too, ``enc_memory_len`` of them) on the card (flash kernel) and on
+    the CPU (plain version): prefill logits within 1e-4·max|logit| and 8 equal greedy
+    tokens. Returns the logits' max |error|."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import decode_greedy
     from repro_torch.models import Model, build_model
@@ -902,10 +931,16 @@ def card_vs_cpu(arch, dev):
     small = get_config(arch, smoke=True).replace(dtype="float32")
     cpu = build_model(small, "cpu", torch.Generator().manual_seed(0))
     on_card = Model.from_numpy(small, cpu.to_numpy(), dev)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, small.vocab_size, (4, 96)))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, small.vocab_size, (4, 96)))
+    src = {}
+    if small.encdec:
+        shape = (4, small.enc_memory_len, small.d_model)
+        src["frames"] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     outs = []
     for m, d in ((cpu, "cpu"), (on_card, dev)):
-        cache, logits = m.prefill(prompts.to(d), m.init_cache(4, 104))
+        kw = {k: t.to(d) for k, t in src.items()}
+        cache, logits = m.prefill(prompts.to(d), m.init_cache(4, 104), **kw)
         outs.append((logits.float().cpu(), decode_greedy(m, cache, logits, 96, 8).cpu()))
     (l_cpu, t_cpu), (l_card, t_card) = outs
     err, bar = float((l_card - l_cpu).abs().max()), 1e-4 * float(l_cpu.abs().max())
@@ -919,6 +954,87 @@ def card_vs_cpu(arch, dev):
     return err
 
 
+def serve_calls(cfg, calls, run, flash_module, shape):
+    """``calls`` calls of ``run(**shape)`` (a generate), K2's count set to 0 before
+    each and read after it: it must equal the config's attention layers, and the
+    encoder's layers for an enc-dec config. Returns the calls' record."""
+    k2_per_call = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    k2_per_call += cfg.n_enc_layers if cfg.encdec else 0
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches = [], []
+    for _ in range(calls):
+        flash_module.launches = 0
+        runs.append(run(**shape))
+        launches.append(flash_module.launches)
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(runs):
+        print(
+            f"  {cfg.name} call {i + 1}: prefill {r.prefill_s:.4f} s, "
+            f"decode {r.decode_s:.4f} s ({shape['gen_tokens'] - 1} steps), "
+            f"{r.tokens_per_s:.1f} tokens/s, "
+            f"K2 launches {launches[i]}"
+        )
+    print(f"  {cfg.name}: peak device memory {peak / 2**30:.2f} GiB")
+    toks = runs[-1].tokens
+    expect(toks.shape == (shape["batch"], shape["gen_tokens"]), f"tokens {toks.shape}")
+    expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
+    expect(
+        all(n == k2_per_call for n in launches),
+        f"{cfg.name}: K2 launched {launches} times, expected {k2_per_call} a call",
+    )
+    same = all(np.array_equal(r.tokens, toks) for r in runs)
+    if calls > 1:
+        print(f"  {cfg.name}: the {calls} calls gave the same tokens: {same}")
+        expect(same, f"{cfg.name}: two generate calls gave different tokens")
+    return dict(
+        prefill_s=[r.prefill_s for r in runs],
+        decode_s=[r.decode_s for r in runs],
+        tokens_per_s=[r.tokens_per_s for r in runs],
+        peak_gib=peak / 2**30,
+        k2_launches=launches,
+        parameters=cfg.param_counts()["total"],
+    )
+
+
+def split_prefill(cfg, dev, shape=SERVE):
+    """One prefill at ``shape`` split by step (after a warm-up prefill; an enc-dec
+    config encodes ``enc_memory_len`` frames); then one decode step after it under
+    torch.profiler: kernels launched, host synchronisations and the card's busy share
+    of the step's wall time."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import working_dtype
+
+    split, step = step_timer()
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev, g)
+    B, S = shape["batch"], shape["prompt_len"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    src = {}
+    if cfg.encdec:
+        frames = torch.randn((B, cfg.enc_memory_len, cfg.d_model), generator=g, device=dev)
+        src["frames"] = frames.to(working_dtype(cfg))
+    model.prefill(prompts, **src)
+    cache, logits = model.prefill(prompts, model.init_cache(B, S + 2), step=step, **src)
+    expect(bool(torch.isfinite(logits).all()), f"{cfg.name}: prefill logits are not finite")
+    total = sum(split.values())
+    print(f"  {cfg.name}: one prefill split by step ({total:.4f} s in all):")
+    for name, sec in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:28s} {sec:9.4f} s  {sec / total:6.1%}")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    model.decode_step(cache, tok, S)  # warm-up
+    kernels, copies, syncs, busy = profile_counts(lambda: model.decode_step(cache, tok, S + 1))
+    n = sum(kernels.values())
+    print(
+        f"  {cfg.name}: a decode step launches {n} kernels ({n / cfg.n_layers:.1f} a layer), "
+        f"{copies} copies and memsets, {syncs} host synchronisations; the card is busy "
+        f"{busy:.1%} of its wall time under the profiler"
+    )
+    del model, cache, logits, prompts, src
+    torch.cuda.empty_cache()
+    return dict(split, total=total), dict(kernels=n, copies=copies, syncs=syncs, busy=busy)
+
+
 def families_phase(dev, card, flash_module):
     """Phase 14: the MoE and SSM families. olmoe-1b-7b at full width (bf16, served
     twice; its prefill split; K2 against its plain version at its attention shape; f32
@@ -928,80 +1044,10 @@ def families_phase(dev, card, flash_module):
     Returns the phase's record."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import decode_flops_bytes, generate
-    from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
     print(f"== 14. the MoE and SSM families on {card}")
     rec = {"card": card, "serve": SERVE}
-
-    def serve(cfg, calls, run):
-        """``calls`` calls of ``run`` (a generate at SERVE's shape), K2's count set to
-        0 before each and read after it: it must equal the config's attention layers."""
-        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
-        torch.cuda.reset_peak_memory_stats()
-        runs, launches = [], []
-        for _ in range(calls):
-            flash_module.launches = 0
-            runs.append(run())
-            launches.append(flash_module.launches)
-            torch.cuda.empty_cache()
-        peak = torch.cuda.max_memory_allocated()
-        for i, r in enumerate(runs):
-            print(
-                f"  {cfg.name} call {i + 1}: prefill {r.prefill_s:.4f} s, "
-                f"decode {r.decode_s:.4f} s ({SERVE['gen_tokens'] - 1} steps), "
-                f"{r.tokens_per_s:.1f} tokens/s, "
-                f"K2 launches {launches[i]}"
-            )
-        print(f"  {cfg.name}: peak device memory {peak / 2**30:.2f} GiB")
-        toks = runs[-1].tokens
-        expect(toks.shape == (SERVE["batch"], SERVE["gen_tokens"]), f"tokens {toks.shape}")
-        expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
-        expect(
-            all(n == n_attn for n in launches),
-            f"{cfg.name}: K2 launched {launches} times, expected {n_attn} a call",
-        )
-        same = all(np.array_equal(r.tokens, toks) for r in runs)
-        if calls > 1:
-            print(f"  {cfg.name}: the {calls} calls gave the same tokens: {same}")
-            expect(same, f"{cfg.name}: two generate calls gave different tokens")
-        return dict(
-            prefill_s=[r.prefill_s for r in runs],
-            decode_s=[r.decode_s for r in runs],
-            tokens_per_s=[r.tokens_per_s for r in runs],
-            peak_gib=peak / 2**30,
-            k2_launches=launches,
-            parameters=cfg.param_counts()["total"],
-        )
-
-    def split_prefill(cfg):
-        """One prefill at SERVE's shape split by step (after a warm-up prefill); then
-        one decode step after it under torch.profiler: kernels launched, host
-        synchronisations and the card's busy share of the step's wall time."""
-        split, step = step_timer()
-        g = torch.Generator(device=dev).manual_seed(0)
-        model = build_model(cfg, dev, g)
-        B, S = SERVE["batch"], SERVE["prompt_len"]
-        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
-        model.prefill(prompts)
-        cache, logits = model.prefill(prompts, model.init_cache(B, S + 2), step=step)
-        expect(bool(torch.isfinite(logits).all()), f"{cfg.name}: prefill logits are not finite")
-        total = sum(split.values())
-        print(f"  {cfg.name}: one prefill split by step ({total:.4f} s in all):")
-        for name, sec in sorted(split.items(), key=lambda kv: -kv[1]):
-            print(f"    {name:18s} {sec:9.4f} s  {sec / total:6.1%}")
-        tok = logits[:, -1].argmax(-1)[:, None]
-        model.decode_step(cache, tok, S)  # warm-up
-        kernels, copies, syncs, busy = profile_counts(lambda: model.decode_step(cache, tok, S + 1))
-        n = sum(kernels.values())
-        print(
-            f"  {cfg.name}: a decode step launches {n} kernels ({n / cfg.n_layers:.1f} a layer), "
-            f"{copies} copies and memsets, {syncs} host synchronisations; the card is busy "
-            f"{busy:.1%} of its wall time under the profiler"
-        )
-        del model, cache, logits, prompts
-        torch.cuda.empty_cache()
-        return dict(split, total=total), dict(kernels=n, copies=copies, syncs=syncs, busy=busy)
 
     g = torch.Generator(device=dev).manual_seed(2)
 
@@ -1028,8 +1074,10 @@ def families_phase(dev, card, flash_module):
         f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
         f"{cfg.param_counts()['total']:,.0f} parameters, not cut"
     )
-    olmoe = serve(cfg, 2, lambda: generate(cfg.name, smoke=False, device=dev, **SERVE))
-    olmoe["split"], olmoe["decode_profile"] = split_prefill(cfg)
+    olmoe = serve_calls(
+        cfg, 2, partial(generate, cfg.name, smoke=False, device=dev), flash_module, SERVE
+    )
+    olmoe["split"], olmoe["decode_profile"] = split_prefill(cfg, dev)
     olmoe["k2"] = k2_check(cfg)
     bound_ms, flops, gather_flops = moe_prefill_bound(cfg, SERVE["batch"], SERVE["prompt_len"])
     ctx = SERVE["prompt_len"] + SERVE["gen_tokens"] // 2
@@ -1060,8 +1108,10 @@ def families_phase(dev, card, flash_module):
         f"of {cfg.ssm_headdim}, d_state {cfg.ssm_state}, chunk {cfg.ssd_chunk}, "
         f"{cfg.param_counts()['total']:,.0f} parameters, not cut"
     )
-    mamba = serve(cfg, 2, lambda: generate(cfg.name, smoke=False, device=dev, **SERVE))
-    mamba["split"], mamba["decode_profile"] = split_prefill(cfg)
+    mamba = serve_calls(
+        cfg, 2, partial(generate, cfg.name, smoke=False, device=dev), flash_module, SERVE
+    )
+    mamba["split"], mamba["decode_profile"] = split_prefill(cfg, dev)
     mamba["f32_decode_vs_prefill"] = f32_check(cfg.replace(dtype="float32"))
     rec["mamba2-130m"] = mamba
 
@@ -1074,7 +1124,7 @@ def families_phase(dev, card, flash_module):
         f"4 MoE FFNs of {cfg.n_experts} x {cfg.moe_d_ff}, 4 dense FFNs of {cfg.d_ff}), "
         f"{cfg.param_counts()['total']:,.0f} parameters (of {full.param_counts()['total']:,.0f})"
     )
-    jamba = serve(cfg, 1, lambda: generate_cut(cfg, dev, **SERVE))
+    jamba = serve_calls(cfg, 1, partial(generate_cut, cfg, dev), flash_module, SERVE)
     jamba["depth_cut"] = [full.n_layers, cfg.n_layers]
     jamba["k2"] = k2_check(cfg)
     rec["jamba-v0.1-52b"] = jamba
@@ -1086,6 +1136,120 @@ def families_phase(dev, card, flash_module):
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  the families phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def encdec_prefill_flops(cfg, B, S):
+    """Operations of an enc-dec prefill of B x S decoder tokens over B x enc_memory_len
+    frames, as (encoder, decoder). An encoder layer: q/k/v/o projections, the MLP and
+    non-causal attention; a decoder layer: its self-attention projections, the cross
+    q and o on its tokens, the cross k and v on the encoder output, the MLP, causal
+    self-attention and cross-attention; then the last token's unembedding."""
+    L, d, ff = cfg.enc_memory_len, cfg.d_model, cfg.d_ff
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    proj, mlp = d * hd * (2 * H + 2 * K), (3 if cfg.mlp_type == "swiglu" else 2) * d * ff
+    enc = 2.0 * B * L * (proj + mlp) + 4.0 * B * H * hd * L * L
+    dec = (
+        2.0 * B * S * (proj + 2 * d * H * hd + mlp)
+        + 2.0 * B * L * 2 * d * K * hd
+        + 4.0 * B * H * hd * (S * (S + 1) / 2 + S * L)
+    )
+    return cfg.n_enc_layers * enc, cfg.n_layers * dec + 2.0 * B * d * cfg.vocab_size
+
+
+def encdec_decode_cost(cfg, B, ctx):
+    """(operations, bytes) of one enc-dec decode step at context ``ctx``: the decoder's
+    matmul weights (self-attention, cross q and o, MLP) in the working dtype and its
+    norms in float32, the unembedding, and each layer's cross cache (enc_memory_len
+    entries) and self cache (ctx entries), each read once."""
+    el = 2 if cfg.dtype in ("bfloat16", "float16") else 4
+    L, d, ff, V = cfg.enc_memory_len, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * ff
+    weights = cfg.n_layers * (d * hd * (2 * H + 2 * K) + 2 * d * H * hd + mlp) + d * V
+    norms = (cfg.n_layers * 3 + 1) * 2 * d * 4
+    caches = cfg.n_layers * 2 * B * K * hd * (L + ctx) * el
+    ops = 2.0 * B * weights + 4.0 * B * cfg.n_layers * H * hd * (L + ctx)
+    return ops, weights * el + norms + caches
+
+
+def encdec_phase(dev, card, flash_module):
+    """Phase 15: the enc-dec family. K2 against its plain version, then timed, at the
+    encoder's shape (non-causal) and the decoder's (causal); seamless-m4t-large-v2 at
+    full width served twice (a K2 launch for each encoder and decoder layer, equal
+    tokens), its prefill split beside the FLOP bound and a decode step beside its bytes
+    bound, with the decode step's kernels and busy share; f32 decode against prefill at
+    full width; and the smoke config card against CPU. Returns the phase's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    B, S, n = ENCDEC_SERVE["batch"], ENCDEC_SERVE["prompt_len"], ENCDEC_SERVE["gen_tokens"]
+    L = cfg.enc_memory_len
+    print(f"== 15. the enc-dec family on {card}")
+    print(
+        f"  {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, {cfg.mlp_type} "
+        f"MLP {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{cfg.param_counts()['total']:,.0f} parameters, not cut; {L} frames, {ENCDEC_SERVE}"
+    )
+    rec = {"card": card, "serve": ENCDEC_SERVE, "frames": L}
+
+    # 1. K2 at the two shapes this path gives it, against its plain version, then timed
+    g = torch.Generator(device=dev).manual_seed(3)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    rec["k2"] = {
+        "encoder": flash_at((B, L, *heads), torch.bfloat16, g, dev, 10, "encoder K2", False),
+        "decoder": flash_at((B, S, *heads), torch.bfloat16, g, dev, 10, "decoder K2"),
+    }
+
+    # 2. serving at full width: K2 once a layer of either stack a prefill, none a decode
+    serving = serve_calls(
+        cfg, 2, partial(generate, ENCDEC_ARCH, smoke=False, device=dev), flash_module, ENCDEC_SERVE
+    )
+    split, serving["decode_profile"] = split_prefill(cfg, dev, ENCDEC_SERVE)
+    serving["split"] = split
+    enc_flops, dec_flops = encdec_prefill_flops(cfg, B, S)
+    flops = enc_flops + dec_flops
+    bound_ms = flops / BF16_FLOPS * 1e3
+    enc_s = sum(sec for name, sec in split.items() if name.startswith("encoder "))
+    cross_s = split.get("decoder cross attention", 0.0)
+    d_ops, d_bytes = encdec_decode_cost(cfg, B, S + n // 2)
+    d_bound = max(d_ops / BF16_FLOPS, d_bytes / HBM_BYTES_PER_S) * 1e3
+    step_ms = [sec / (n - 1) * 1e3 for sec in serving["decode_s"]]
+    print(
+        f"  {cfg.name}: prefill bound {bound_ms:.2f} ms ({flops / 1e12:.2f} TFLOP at bf16 989 "
+        f"TFLOP/s, the encoder {enc_flops / flops:.1%} of it) against "
+        f"{min(serving['prefill_s']) * 1e3:.2f} ms measured; in the split the encoder took "
+        f"{enc_s / split['total']:.1%} and the plain cross attention "
+        f"{cross_s / split['total']:.1%}; decode bound {d_bound:.3f} ms a step "
+        f"({d_bytes / 1e9:.3f} GB at 3.35 TB/s) against {min(step_ms):.2f} ms"
+    )
+    serving.update(
+        prefill_tflop=flops / 1e12,
+        prefill_bound_ms=bound_ms,
+        encoder_flop_share=enc_flops / flops,
+        encoder_split_share=enc_s / split["total"],
+        cross_attention_split_share=cross_s / split["total"],
+        decode_bytes=d_bytes,
+        decode_bound_ms=d_bound,
+        decode_step_ms=step_ms,
+    )
+    rec[cfg.name] = serving
+
+    # 3. f32 decode against prefill at full width; 4. the smoke config card against CPU
+    err, ok, top = decode_vs_prefill(cfg.replace(dtype="float32"), dev)
+    print(
+        f"  {cfg.name} full width float32, B 2, S 256, {L} frames: decode vs prefill "
+        f"max_abs_err {err:.3e} (bar 2e-4 + 2e-3|x|; max |logit| {top:.3f})"
+    )
+    expect(ok, f"{cfg.name}: decode disagrees with prefill at full width: {err}")
+    rec["f32_decode_vs_prefill"] = err
+    rec["card_vs_cpu"] = card_vs_cpu(ENCDEC_ARCH, dev)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the enc-dec phase took {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -2079,6 +2243,11 @@ def main():
     k2_families = [families[arch]["k2"] for arch in ("olmoe-1b-7b", "jamba-v0.1-52b")]
     print(json.dumps({"families": families}))
 
+    # ---------------------------------------------------- 15. the enc-dec family
+    encdec = encdec_phase(dev, card, flash_module)
+    k2_encdec = list(encdec["k2"].values())
+    print(json.dumps({"encdec": encdec}))
+
     # ------------------------------------------------------------ 10. fleet
     fleet = fleet_phase(dev, card)
     print(json.dumps({"fleet": fleet}))
@@ -2126,8 +2295,11 @@ def main():
                 arch: families[arch]["k2_launches"] for arch in ("olmoe-1b-7b", "jamba-v0.1-52b")
             },
             **flash_timings["serve"],
-            "max_abs_err": max(t["max_abs_err"] for t in [*flash_timings.values(), *k2_families]),
+            "max_abs_err": max(
+                t["max_abs_err"] for t in [*flash_timings.values(), *k2_families, *k2_encdec]
+            ),
             "families": dict(zip(("olmoe-1b-7b", "jamba-v0.1-52b"), k2_families)),
+            "encdec": dict(encdec["k2"], launches=encdec[ENCDEC_ARCH]["k2_launches"]),
             "prefill_32k": flash_timings["prefill_32k"],
             "serve_f32": flash_timings["serve_f32"],
         },

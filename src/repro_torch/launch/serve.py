@@ -1,9 +1,11 @@
 """Batched serving driver: prefill prompts into a KV cache, then greedy decode.
-Counterpart of the JAX package's ``launch/serve.py`` for the decoder-only families
-(dense, MoE, SSM, hybrid).
+Counterpart of the JAX package's ``launch/serve.py`` for every family: dense, MoE,
+SSM, hybrid, and enc-dec (seamless-m4t-large-v2), whose prefill first encodes a
+source of ``enc_memory_len`` random frames.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --full \\
         --batch 4 --prompt-len 2048 --tokens 32
 """
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch._device import resolve_device, sync
 from repro_torch.configs import get_config
+from repro_torch.models.layers import working_dtype
 from repro_torch.models.model import build_model
 
 
@@ -73,21 +76,28 @@ def generate(
 ) -> GenResult:
     """Random weights and prompts from one ``torch.Generator`` seeded with ``seed``
     on ``device`` (None -> cuda), prefill, then ``gen_tokens - 1`` greedy decode steps.
+    An enc-dec config's source is frames of (batch, ``enc_memory_len``, d_model), normal
+    draws from the same generator after the prompts, in the working dtype, as the
+    reference's.
 
     The KV cache is allocated once at ``prompt_len + gen_tokens`` and filled in place;
     the reference prefills a prompt-length cache and pads it (``pad_cache``). Prefill
-    time counts the cache's allocation, as the reference's counts the padding.
-    Decoding is greedy, as in the reference."""
+    time counts the cache's allocation, as the reference's counts the padding, and the
+    encoder, as the reference's does. Decoding is greedy, as in the reference."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     g = torch.Generator(device=dev).manual_seed(seed)
     model = build_model(cfg, dev, g)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device=dev)
+    source = {}
+    if cfg.encdec:
+        shape = (batch, cfg.enc_memory_len, cfg.d_model)
+        source["frames"] = torch.randn(shape, generator=g, device=dev).to(working_dtype(cfg))
     max_len = prompt_len + gen_tokens
 
     sync()
     t0 = time.perf_counter()
-    cache, logits = model.prefill(prompts, model.init_cache(batch, max_len))
+    cache, logits = model.prefill(prompts, model.init_cache(batch, max_len), **source)
     sync()
     t_prefill = time.perf_counter() - t0
 
@@ -100,7 +110,11 @@ def generate(
 
 
 def main():
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description="Serve a registered architecture with random weights: prefill a batch "
+        "of random prompts (an enc-dec arch, seamless-m4t-large-v2, first encodes "
+        "enc_memory_len random frames), then greedy decode."
+    )
     ap.add_argument("--arch", required=True)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

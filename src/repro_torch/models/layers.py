@@ -1,5 +1,6 @@
-"""Model building blocks: norms, RoPE, GQA attention (prefill and decode), MLP
-variants, embeddings. Counterpart of the JAX package's ``models/layers.py``.
+"""Model building blocks: norms, RoPE, sinusoidal positions, GQA attention (prefill,
+decode, the encoder's bidirectional mode and cross-attention), MLP variants,
+embeddings. Counterpart of the JAX package's ``models/layers.py``.
 
 Parameters keep the reference's names and layouts, (d, H, hd) for ``wq``,
 (d, K, hd) for ``wk``/``wv`` and (H, hd, d) for ``wo``, so that a reference
@@ -121,14 +122,31 @@ def apply_rope(x, positions, theta: float, fraction: float):
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
 
 
+def sinusoidal_pos_emb(positions, dim: int, dtype):
+    """sin and cos of positions x exp(-i ln(1e4) / max(half - 1, 1)) for i < half, in
+    float32, concatenated and cast to ``dtype``; positions (...,) -> (..., dim).
+
+    The frequencies come from torch's float32 ``exp``, which is correctly rounded far
+    more often than XLA's on the CPU, so an angle can sit one float32 ulp from the
+    reference's (2^-12 rad at 4095; ROADMAP, R12)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -torch.arange(half, dtype=F32, device=positions.device)
+        * (math.log(10_000.0) / max(half - 1, 1))
+    )
+    ang = positions[..., None].to(F32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
 
 class Attention(nn.Module):
-    """GQA self-attention in modes ``causal`` (prefill) and ``decode``. The
-    reference's ``bidir``, ``cross`` and ``cross_decode`` wait for the enc-dec family."""
+    """GQA attention in the reference's five modes: self-attention ``causal``
+    (prefill), ``bidir`` (the encoder) and ``decode``; cross-attention ``cross``
+    (prefill, keys and values from ``kv_x``) and ``cross_decode`` (from the cache)."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -153,14 +171,29 @@ class Attention(nn.Module):
                 self.q_norm.fill_(1.0)
                 self.k_norm.fill_(1.0)
 
+    def _q(self, x):
+        """The query projection, qk-normed when the config says so (no RoPE)."""
+        B, S, d = x.shape
+        q = (x @ self.wq.view(d, -1)).view(B, S, self.cfg.n_heads, self.cfg.head_dim)
+        return rms_norm_nohead(q, self.q_norm) if self.cfg.qk_norm else q
+
+    def _kv(self, x):
+        """The key and value projections (B, S, K, hd), neither normed nor rotated."""
+        B, S, d = x.shape
+        shape = (B, S, self.cfg.n_kv_heads, self.cfg.head_dim)
+        return (x @ self.wk.view(d, -1)).view(shape), (x @ self.wv.view(d, -1)).view(shape)
+
+    def cross_kv(self, enc_out):
+        """The reference's ``cross_kv``: the encoder output's keys and values in the
+        cache layout (B, K, S, hd), without ``k_norm`` (ROADMAP, R9)."""
+        k, v = self._kv(enc_out)
+        return {"ck": k.transpose(1, 2), "cv": v.transpose(1, 2)}
+
     def _qkv(self, x, positions):
         cfg = self.cfg
-        B, S, d = x.shape
-        q = (x @ self.wq.view(d, -1)).view(B, S, cfg.n_heads, cfg.head_dim)
-        k = (x @ self.wk.view(d, -1)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = (x @ self.wv.view(d, -1)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+        q = self._q(x)
+        k, v = self._kv(x)
         if cfg.qk_norm:
-            q = rms_norm_nohead(q, self.q_norm)
             k = rms_norm_nohead(k, self.k_norm)
         if cfg.pos_emb == "rope":
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -171,36 +204,63 @@ class Attention(nn.Module):
         B, S = o.shape[:2]
         return o.reshape(B, S, -1) @ self.wo.view(-1, self.cfg.d_model)
 
-    def forward(self, x, *, mode: str, positions=None, cache=None, pos=None, step=_run):
+    def forward(
+        self, x, *, mode: str, positions=None, cache=None, pos=None, kv_x=None, step=_run
+    ):
         """causal: x (B, S, d); writes k and v into ``cache`` = {"k", "v"} of shape
-        (B, K, Smax, hd) at [:, :, :S]. decode: x (B, 1, d) at absolute position
-        ``pos``; writes k and v at ``pos`` and attends over the first pos + 1 entries.
-        Returns (out, cache). The cache is updated in place, where the reference
-        returns new arrays (``dynamic_update_slice``, ``pad_cache``)."""
-        if mode == "causal":
+        (B, K, Smax, hd) at [:, :, :S]. bidir: the same attention without the mask
+        and without a cache. decode: x (B, 1, d) at absolute position ``pos``; writes k
+        and v at ``pos`` and attends over the first pos + 1 entries. cross: queries
+        from x, keys and values from ``kv_x`` (B, S_enc, d), written into ``cache`` =
+        {"ck", "cv"} of (B, K, L, hd) at [:, :, :S_enc] (L >= S_enc); the rest stays as
+        it is. cross_decode: attends over all L entries of ``cache``. Returns (out,
+        cache). The cache is updated in place, where the reference returns new arrays
+        (``dynamic_update_slice``, ``pad_cache``)."""
+        if mode in ("causal", "bidir"):
+            causal = mode == "causal"
             q, k, v = step("qkv + rope", lambda: self._qkv(x, positions))
-            out = step("attention kernel", lambda: gqa_attention(q, k, v, causal=True))
-            S = x.shape[1]
-            # prefill cache layout (B, K, S, hd): seq next to head_dim, as the reference's
-            cache["k"][:, :, :S].copy_(k.transpose(1, 2))
-            cache["v"][:, :, :S].copy_(v.transpose(1, 2))
+            out = step("attention kernel", lambda: gqa_attention(q, k, v, causal=causal))
+            if causal:
+                S = x.shape[1]
+                # prefill cache layout (B, K, S, hd): seq next to head_dim, as the reference's
+                cache["k"][:, :, :S].copy_(k.transpose(1, 2))
+                cache["v"][:, :, :S].copy_(v.transpose(1, 2))
             return step("out projection", lambda: self._out(out)), cache
+        if mode == "cross":
+            # One projection of the encoder output serves the attention and the cache,
+            # where the reference projects it twice (models/layers.py:264 and :308).
+            q = step("cross q", lambda: self._q(x))
+            kv = step("cross K/V", lambda: self.cross_kv(kv_x))
+            if cache is not None:
+                n = kv_x.shape[1]
+                cache["ck"][:, :, :n].copy_(kv["ck"])
+                cache["cv"][:, :, :n].copy_(kv["cv"])
+            k = kv["ck"]
+            if self.cfg.qk_norm:  # prefill's keys are normed, the cached ones not (R9)
+                k = rms_norm_nohead(k, self.k_norm)
+            out = step("cross attention", lambda: _sdpa(q, k, kv["cv"]))
+            return step("cross out projection", lambda: self._out(out)), cache
+        if mode == "cross_decode":
+            out = _sdpa(self._q(x), cache["ck"], cache["cv"])
+            return self._out(out), cache
         if mode == "decode":
             positions = torch.full((1, 1), pos, device=x.device)
             q, k, v = self._qkv(x, positions)
             cache["k"][:, :, pos].copy_(k[:, 0])
             cache["v"][:, :, pos].copy_(v[:, 0])
-            out = _decode_sdpa(q, cache["k"][:, :, : pos + 1], cache["v"][:, :, : pos + 1])
+            out = _sdpa(q, cache["k"][:, :, : pos + 1], cache["v"][:, :, : pos + 1])
             return self._out(out), cache
-        raise ValueError(f"attention mode {mode!r} is not ported; causal and decode are")
+        raise ValueError(f"unknown attention mode {mode!r}")
 
 
-def _decode_sdpa(q, k, v):
-    """The reference's ``_sdpa(..., layout="seq")``, the decode attention, in plain
-    torch as the reference computes it outside any Pallas kernel: scores in the
-    working dtype then float32, float32 softmax, weights cast back before P·V.
-    q: (B, Sq, H, hd); k/v: (B, K, L, hd) hold the L valid cache entries. The
-    reference masks the entries past L with -1e30, which add exactly 0."""
+def _sdpa(q, k, v):
+    """The reference's ``_sdpa`` with no mask, in plain torch as the reference
+    computes it outside any Pallas kernel: scores in the working dtype then float32,
+    float32 softmax, weights cast back before P·V. It serves decode, ``cross_decode``
+    and ``cross`` (where the query length is not the key length and K2 does not
+    apply). q: (B, Sq, H, hd); k/v: (B, K, L, hd), the cache layout, hold the L keys
+    attended to. In decode the reference masks the entries past L with -1e30, which
+    add exactly 0."""
     B, Sq, H, hd = q.shape
     K = k.shape[1]
     qg = q.reshape(B, Sq, K, H // K, hd)

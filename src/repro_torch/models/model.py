@@ -18,7 +18,9 @@ from repro_torch.models import layers, transformer
 
 
 class Model(nn.Module):
-    """The decoder-only LM (dense, MoE, SSM and hybrid families). ``Model(cfg, device)``
+    """The LM of every family: decoder-only (dense, MoE, SSM, hybrid) or enc-dec, whose
+    encoder stack (``enc_blocks``, ``enc_norm``) feeds each decoder block's cross-
+    attention. ``Model(cfg, device)``
     allocates the parameters uninitialised on ``device`` (None -> cuda); ``build_model``
     draws them, ``from_numpy`` copies them in. The two together stand for the
     reference's ``init_lm``."""
@@ -27,13 +29,14 @@ class Model(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.program = transformer.check_ported(cfg)
-        P = len(self.program)
+        self.program = transformer.block_program(cfg)
         self.embed = layers.Embed(cfg, device)
         self.final_norm = layers.Norm(cfg, cfg.d_model, device)
-        self.blocks = nn.ModuleList(
-            transformer.Block(cfg, self.program[i % P], device) for i in range(cfg.n_layers)
-        )
+        self.blocks = _stack(cfg, self.program, cfg.n_layers, device)
+        if cfg.encdec:
+            self.enc_program = transformer.block_program(cfg, decoder=False)
+            self.enc_blocks = _stack(cfg, self.enc_program, cfg.n_enc_layers, device)
+            self.enc_norm = layers.Norm(cfg, cfg.d_model, device)
 
     @property
     def device(self) -> torch.device:
@@ -49,12 +52,35 @@ class Model(nn.Module):
 
     # ---- steps ----
     @torch.no_grad()
-    def prefill(self, tokens, cache=None, step=layers._run):
+    def prefill(self, tokens, cache=None, step=layers._run, *, frames=None, src_tokens=None):
         """tokens (B, S) -> (cache, last-token logits (B, 1, V)). Without a cache, one
-        of length S is allocated; a given one (max_seq >= S) is filled in place."""
+        of length S is allocated; a given one (max_seq >= S) is filled in place.
+
+        An enc-dec model takes its source as exactly one of ``frames`` (B, S_enc, d),
+        cast to the working dtype, and ``src_tokens`` (B, S_enc), with S_enc no more
+        than ``cfg.enc_memory_len``, the cross cache's length; any other model takes
+        neither. Anything else raises ValueError."""
+        source = {"frames": frames, "src_tokens": src_tokens}
+        given = [name for name, t in source.items() if t is not None]
+        if self.cfg.encdec:
+            if len(given) != 1:
+                raise ValueError(
+                    f"{self.cfg.name} is an encoder-decoder: prefill takes exactly one of "
+                    f"frames= and src_tokens=, got {given or 'neither'}"
+                )
+            n = (frames if frames is not None else src_tokens).shape[1]
+            if n > self.cfg.enc_memory_len:
+                raise ValueError(
+                    f"{self.cfg.name}: a source of {n} is longer than the cross cache "
+                    f"(enc_memory_len {self.cfg.enc_memory_len})"
+                )
+        elif given:
+            raise ValueError(f"{self.cfg.name} has no encoder: prefill takes no {given[0]}=")
         if cache is None:
             cache = self.init_cache(*tokens.shape)
-        return transformer.forward_prefill(self, tokens, cache, step)
+        return transformer.forward_prefill(
+            self, tokens, cache, step, frames=frames, src_tokens=src_tokens
+        )
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos: int):
@@ -65,7 +91,8 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int):
         """Zero cache in the reference's tree (``cache_specs``): per period position
-        {"attn": {"k", "v"}} or {"ssm": {"conv", "state"}}, each stacked over n_stack;
+        {"attn": {"k", "v"}} or {"ssm": {"conv", "state"}}, with {"cross": {"ck", "cv"}}
+        of ``enc_memory_len`` entries in the enc-dec family, each stacked over n_stack;
         prefill and decode fill it in place."""
 
         def zeros(spec):
@@ -77,15 +104,23 @@ class Model(nn.Module):
         )
 
     # ---- the reference's parameter tree ----
+    def _programs(self) -> dict:
+        """The block programs by their name in the reference's tree."""
+        progs = {"blocks": self.program}
+        if self.cfg.encdec:
+            progs["enc_blocks"] = self.enc_program
+        return progs
+
     def _tree_leaves(self):
         """(path in the reference's tree, stack index or None, parameter) for each
-        parameter; block parameters are stacked over the layers of one position."""
-        P = len(self.program)
+        parameter; block parameters (``blocks``, ``enc_blocks``) are stacked over the
+        layers of one position."""
+        periods = {name: len(prog) for name, prog in self._programs().items()}
         for name, p in self.named_parameters():
             parts = name.split(".")
-            if parts[0] == "blocks":
-                i = int(parts[1])
-                yield ("blocks", i % P, *parts[2:]), i // P, p
+            if parts[0] in periods:
+                i, P = int(parts[1]), periods[parts[0]]
+                yield (parts[0], i % P, *parts[2:]), i // P, p
             else:
                 yield tuple(parts), None, p
 
@@ -101,7 +136,8 @@ class Model(nn.Module):
                 stacks.setdefault(path, {})[s] = a
         for path, by_stack in stacks.items():
             _set(tree, path, np.stack([by_stack[s] for s in sorted(by_stack)]))
-        tree["blocks"] = tuple(tree["blocks"][j] for j in range(len(self.program)))
+        for name, prog in self._programs().items():
+            tree[name] = tuple(tree[name][j] for j in range(len(prog)))
         return tree
 
     @classmethod
@@ -117,6 +153,12 @@ class Model(nn.Module):
                     raise ValueError(f"{'.'.join(map(str, path))}: {a.shape} vs {tuple(p.shape)}")
                 p.copy_(torch.from_numpy(np.array(a, np.float32)))
         return model
+
+
+def _stack(cfg: ArchConfig, program: list[dict], n_layers: int, device) -> nn.ModuleList:
+    """The layers of one stack in execution order: layer i runs ``program[i % P]``."""
+    P = len(program)
+    return nn.ModuleList(transformer.Block(cfg, program[i % P], device) for i in range(n_layers))
 
 
 def _get(tree, path):

@@ -1,4 +1,4 @@
-"""Layer-stack engine: the decoder-only path of the JAX package's ``models/transformer.py``.
+"""Layer-stack engine: the serving path of the JAX package's ``models/transformer.py``.
 
 Every architecture is described by a *block program*: the periodic pattern of
 (mixer, ffn, cross) sublayers, ``n_layers = n_stack * period`` deep. The reference
@@ -8,9 +8,10 @@ with ``lax.scan``; here the layers are an ``nn.ModuleList`` in execution order
 runs them.
 
 Ported: mixers ``attn`` and ``ssm`` with FFNs ``dense``, ``moe`` or none, in modes
-prefill and decode, which covers the dense, MoE, SSM and hybrid families. Cross-
-attention (enc-dec) raises ``NotImplementedError``; ``forward_train`` and ``loss_fn``
-wait for the training slice.
+prefill and decode, which covers the dense, MoE, SSM and hybrid families; and the
+enc-dec family's two stacks, the encoder [bidirectional attention + FFN] and the
+decoder [attention + cross-attention + FFN]. ``forward_train`` and ``loss_fn`` wait for
+the training slice.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def block_period(cfg: ArchConfig) -> int:
     return p
 
 
-def block_program(cfg: ArchConfig) -> list[dict]:
+def block_program(cfg: ArchConfig, decoder: bool = True) -> list[dict]:
     P = block_period(cfg)
     prog = []
     for j in range(P):
@@ -50,28 +51,19 @@ def block_program(cfg: ArchConfig) -> list[dict]:
         else:
             mixer = "attn"
             ffn = "moe" if cfg.is_moe_layer(j) else ("dense" if cfg.d_ff else None)
-        prog.append({"mixer": mixer, "ffn": ffn, "cross": bool(cfg.encdec)})
-    return prog
-
-
-def check_ported(cfg: ArchConfig) -> list[dict]:
-    """The block program, or NotImplementedError for the enc-dec family."""
-    prog = block_program(cfg)
-    if any(entry["cross"] for entry in prog):
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec cross-attention is not ported yet: ROADMAP Queue 1, item 6b"
-        )
+        prog.append({"mixer": mixer, "ffn": ffn, "cross": bool(cfg.encdec and decoder)})
     return prog
 
 
 # ---------------------------------------------------------------------------
-# one block (the reference's _apply_block_pos without cross-attention)
+# one block (the reference's _apply_block_pos)
 # ---------------------------------------------------------------------------
 
 
 class Block(nn.Module):
-    """One layer: x + mixer(norm1(x)), then x + ffn(norm2(x)) when it has an FFN.
-    The mixer is attention or SSD, the FFN a dense MLP, an MoE or none."""
+    """One layer: x + mixer(norm1(x)); in a decoder block of the enc-dec family then
+    x + cross(norm_cross(x), encoder output); then x + ffn(norm2(x)) when it has an
+    FFN. The mixer is attention or SSD, the FFN a dense MLP, an MoE or none."""
 
     def __init__(self, cfg: ArchConfig, entry: dict, device):
         super().__init__()
@@ -81,16 +73,26 @@ class Block(nn.Module):
             self.mixer = layers.Attention(cfg, device)
         else:
             self.mixer = mamba.SSD(cfg, device)
+        self.has_cross = entry["cross"]
+        if self.has_cross:
+            self.norm_cross = layers.Norm(cfg, cfg.d_model, device)
+            self.cross = layers.Attention(cfg, device)
         self.ffn_kind = entry["ffn"]
         if self.ffn_kind:
             self.norm2 = layers.Norm(cfg, cfg.d_model, device)
             self.ffn = layers.MLP(cfg, device) if self.ffn_kind == "dense" else moe.MoE(cfg, device)
 
-    def forward(self, x, *, mode: str, positions=None, cache=None, pos=None, step=_run):
-        """mode: prefill | decode. ``cache`` is this layer's {"attn": {"k", "v"}} or
-        {"ssm": {"conv", "state"}}, updated in place."""
+    def forward(
+        self, x, *, mode: str, positions=None, cache=None, pos=None, enc_out=None, step=_run
+    ):
+        """mode: encode | prefill | decode. ``cache`` is this layer's {"attn": {"k", "v"}}
+        or {"ssm": {"conv", "state"}}, with {"cross": {"ck", "cv"}} in a decoder block of
+        the enc-dec family, updated in place; an encoder block takes none. ``enc_out``
+        is the encoder's output at prefill."""
         h = step("norms", lambda: self.norm1(x))
-        if self.kind == "attn":
+        if mode == "encode":  # every encoder block's mixer is attention
+            out, _ = self.mixer(h, mode="bidir", positions=positions, step=step)
+        elif self.kind == "attn":
             attn_mode = "causal" if mode == "prefill" else "decode"
             out, _ = self.mixer(
                 h, mode=attn_mode, positions=positions, cache=cache["attn"], pos=pos, step=step
@@ -98,6 +100,13 @@ class Block(nn.Module):
         else:
             out, _ = self.mixer(h, cache=cache["ssm"], pos=pos, step=step)
         x = x + out
+        if self.has_cross:
+            h = step("norms", lambda: self.norm_cross(x))
+            if mode == "decode":
+                out, _ = self.cross(h, mode="cross_decode", cache=cache["cross"])
+            else:
+                out, _ = self.cross(h, mode="cross", kv_x=enc_out, cache=cache["cross"], step=step)
+            x = x + out
         if self.ffn_kind:
             h = step("norms", lambda: self.norm2(x))
             if self.ffn_kind == "dense":
@@ -115,8 +124,8 @@ class Block(nn.Module):
 
 
 def _layer_cache(cache, layer: int, period: int):
-    """Layer ``layer``'s entry, {"attn": {"k", "v"}} or {"ssm": {"conv", "state"}}:
-    views into the stacked cache tree."""
+    """Layer ``layer``'s entry, {"attn": {"k", "v"}} or {"ssm": {"conv", "state"}} (and
+    {"cross": {"ck", "cv"}}): views into the stacked cache tree."""
     s = layer // period
     return {
         kind: {name: t[s] for name, t in entry.items()}
@@ -124,15 +133,51 @@ def _layer_cache(cache, layer: int, period: int):
     }
 
 
-def forward_prefill(model, tokens, cache, step=_run):
+def _prefixed(step, prefix: str):
+    """``step`` with ``prefix`` before every name: the enc-dec family's split tells
+    the encoder's sublayers from the decoder's."""
+    return lambda name, fn: step(prefix + name, fn)
+
+
+def _add_positions(cfg: ArchConfig, x, positions):
+    """x + the sinusoidal table at ``positions``, cast to x's dtype before the add, as
+    the reference does; x as it is for any other ``pos_emb``."""
+    if cfg.pos_emb != "sinusoidal":
+        return x
+    return x + layers.sinusoidal_pos_emb(positions, cfg.d_model, x.dtype)[None]
+
+
+def _encode(model, frames=None, src_tokens=None, step=_run):
+    """The encoder: ``frames`` (B, S, d) cast to the working dtype, or ``src_tokens``
+    (B, S) through the shared embedding; then the positions, the encoder stack and
+    ``enc_norm``. Returns (B, S, d)."""
+    if frames is not None:
+        x = frames.to(layers.working_dtype(model.cfg))
+    else:
+        x = step("embed", lambda: model.embed.embed_tokens(src_tokens))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _add_positions(model.cfg, x, positions)
+    for block in model.enc_blocks:
+        x = block(x, mode="encode", positions=positions, step=step)
+    return step("norms", lambda: model.enc_norm(x))
+
+
+def forward_prefill(model, tokens, cache, step=_run, *, frames=None, src_tokens=None):
     """tokens (B, S) -> (cache, last-token logits (B, 1, V)). ``cache`` (from
-    ``Model.init_cache`` with max_seq >= S) is filled in place at [:S]."""
+    ``Model.init_cache`` with max_seq >= S) is filled in place at [:S]. An enc-dec
+    model first encodes ``frames`` or ``src_tokens`` and writes each decoder layer's
+    cross keys and values into the cache at [:S_enc]."""
+    enc_out = None
+    if model.cfg.encdec:
+        enc_out = _encode(model, frames, src_tokens, _prefixed(step, "encoder "))
+        step = _prefixed(step, "decoder ")
     x = step("embed", lambda: model.embed.embed_tokens(tokens))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _add_positions(model.cfg, x, positions)
     P = len(model.program)
     for i, block in enumerate(model.blocks):
         c = _layer_cache(cache, i, P)
-        x = block(x, mode="prefill", positions=positions, cache=c, step=step)
+        x = block(x, mode="prefill", positions=positions, cache=c, enc_out=enc_out, step=step)
     x = step("norms", lambda: model.final_norm(x[:, -1:, :]))
     return cache, step("unembed", lambda: model.embed.logits(x))
 
@@ -141,6 +186,7 @@ def decode_step(model, cache, tokens, pos: int):
     """One decode step. tokens: (B, 1); pos: absolute position. Returns (cache,
     logits (B, 1, V)); the cache is updated in place."""
     x = model.embed.embed_tokens(tokens)
+    x = _add_positions(model.cfg, x, torch.full((1,), pos, device=x.device))
     P = len(model.program)
     for i, block in enumerate(model.blocks):
         x = block(x, mode="decode", cache=_layer_cache(cache, i, P), pos=pos)
@@ -155,11 +201,18 @@ def decode_step(model, cache, tokens, pos: int):
 def cache_specs(cfg: ArchConfig, batch: int, max_seq: int):
     """Per period position, {"attn": {"k", "v"}} of (n_stack, B, K, max_seq, hd) in the
     working dtype, or {"ssm": {"conv", "state"}} of (n_stack, B, W - 1, cch) in the
-    working dtype and (n_stack, B, H, N, P) in float32."""
-    prog = check_ported(cfg)
+    working dtype and (n_stack, B, H, N, P) in float32; a decoder position of the
+    enc-dec family adds {"cross": {"ck", "cv"}} of (n_stack, B, K, enc_memory_len, hd)."""
+    prog = block_program(cfg)
     n_stack = cfg.n_layers // len(prog)
-    kv = ((n_stack, batch, cfg.n_kv_heads, max_seq, cfg.head_dim), layers.working_dtype(cfg))
-    ssm = {n: ((n_stack, *shape), dt) for n, (shape, dt) in mamba.cache_spec(cfg, batch).items()}
-    return tuple(
-        {"attn": {"k": kv, "v": kv}} if e["mixer"] == "attn" else {"ssm": dict(ssm)} for e in prog
-    )
+    dt = layers.working_dtype(cfg)
+    kv = ((n_stack, batch, cfg.n_kv_heads, max_seq, cfg.head_dim), dt)
+    cross = ((n_stack, batch, cfg.n_kv_heads, cfg.enc_memory_len, cfg.head_dim), dt)
+    ssm = {n: ((n_stack, *shape), t) for n, (shape, t) in mamba.cache_spec(cfg, batch).items()}
+    entries = []
+    for e in prog:
+        entry = {"attn": {"k": kv, "v": kv}} if e["mixer"] == "attn" else {"ssm": dict(ssm)}
+        if e["cross"]:
+            entry["cross"] = {"ck": cross, "cv": cross}
+        entries.append(entry)
+    return tuple(entries)

@@ -289,6 +289,47 @@ def test_families_serve_on_the_card(cuda, arch):
     np.testing.assert_array_equal(again.tokens, r.tokens)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_encoders_shape(cuda, dtype):
+    """seamless-m4t-large-v2's encoder self-attention: B 4, 4096 frames, 16/16 heads of
+    64, non-causal (and causal at the decoder's 512 tokens)."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    for S, causal in ((4096, False), (512, True)):
+        q, k, v = (torch.randn(4, S, 16, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+        _check_flash(q, k, v, causal, dtype)
+
+
+def test_encdec_serves_on_the_card_and_matches_the_cpu(cuda):
+    """seamless at smoke size: one K2 launch a prefill for each encoder and decoder
+    layer, the same tokens on a second call; and in float32 the card's prefill logits
+    and greedy tokens against the CPU's on the same weights, prompts and frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import decode_greedy, generate
+    from repro_torch.models import Model, build_model
+
+    arch = "seamless-m4t-large-v2"
+    cfg = get_config(arch, smoke=True)
+    flash_module.launches = 0
+    r = generate(arch, batch=2, prompt_len=40, gen_tokens=4, device=cuda)
+    assert flash_module.launches == cfg.n_enc_layers + cfg.n_layers
+    again = generate(arch, batch=2, prompt_len=40, gen_tokens=4, device=cuda)
+    np.testing.assert_array_equal(again.tokens, r.tokens)
+
+    cfg = cfg.replace(dtype="float32")
+    cpu = build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    card = Model.from_numpy(cfg, cpu.to_numpy(), cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)))
+    frames = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32))
+    outs = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        cache, logits = model.prefill(toks.to(dev), model.init_cache(2, 56), frames=frames.to(dev))
+        outs.append((logits.float().cpu(), decode_greedy(model, cache, logits, 48, 8).cpu()))
+    (l_cpu, t_cpu), (l_card, t_card) = outs
+    assert float((l_card - l_cpu).abs().max()) <= 1e-4 * float(l_cpu.abs().max())
+    assert torch.equal(t_card, t_cpu)
+
+
 def _moe_case(dtype, T=512):
     from repro_torch.configs import get_config
     from repro_torch.models import moe

@@ -41,7 +41,6 @@ from torch_lm_cases import (
 )
 
 CARRIED = ["minitron-4b", "chatglm3-6b", "granite-20b"]
-NOT_PORTED = ["seamless-m4t-large-v2"]
 
 
 def _t(a):
@@ -218,15 +217,6 @@ def test_init_follows_the_reference_scheme():
     assert not model.blocks[0].norm1.bias.any()
     again = build_model(cfg, "cpu", torch.Generator().manual_seed(4))
     assert torch.equal(again.embed.unembed, model.embed.unembed)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_families_not_ported_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6b"):
-        build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6b"):
-        serve.generate(arch, device="cpu")
 
 
 def test_generate_on_cpu():
