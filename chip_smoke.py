@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order they run (numbered in the order they were added: 14 and 15 run
-after 9); any failure exits non-zero:
+Phases, in the order they run (numbered in the order they were added: 14, 15 and 16
+run after 9); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
@@ -67,6 +67,16 @@ after 9); any failure exits non-zero:
     decode step beside its bytes bound with its kernels and busy share (profiler); f32
     decode against prefill at full width; the smoke config card against CPU; then one
     JSON line of it;
+16. training, which runs no kernel of its own (the reference trains through its plain
+    attention, and K2 has no backward): every smoke arch's loss and gradients in float32
+    on the card against the CPU (wq, wk and wv nonzero) and the full-width mamba2-130m's
+    loss and gradient norm; mamba2-130m at full width, not cut, through
+    ``launch.train.train`` (8 x 2048 tokens in 2 microbatches, 30 steps, a NaN loss at
+    step 15 restored from step 10's checkpoint, the loss falling, a second job resuming
+    at step 30), its warm step, tokens/s, AdamW step, peak memory and FLOP bound;
+    minitron-4b at full width with its depth cut 32 -> 8 (2.23 B parameters), 6 steps of
+    8 x 2048 tokens in 4 microbatches, split into forward + backward and AdamW, peak
+    memory and bound; K2 launched 0 times in the phase; then one JSON line of it;
 10. the fleet simulator's compiled backend (``backend="torch"``, its bin loop a CUDA
     graph) against the numpy engine: window-sum order; the golden scenarios of
     tests/test_jax_backend.py at its bar and the substep grid bit for bit; every policy
@@ -165,6 +175,30 @@ SERVE = dict(batch=4, prompt_len=2048, gen_tokens=32)
 # speech-to-text.
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC_SERVE = dict(batch=4, prompt_len=512, gen_tokens=32)
+# Phase 16, training. (b) mamba2-130m at full width, not cut: examples/train_lm.py's job
+# (2 microbatches, peak lr 6e-4) at a global batch of 8 x 2048 tokens for 30 steps with
+# 10 of warm-up, a checkpoint every 10 steps and a NaN loss injected at step 15, then a
+# second job that resumes from step 30's checkpoint; (c) minitron-4b at full width with
+# its depth cut 32 -> 8 layers (2.23 B parameters, 16 B a parameter of training state),
+# 8 x 2048 tokens in 4 microbatches of 2 x 2048, 6 steps.
+TRAIN_JOB = dict(
+    arch="mamba2-130m",
+    smoke=False,
+    steps=30,
+    seq_len=2048,
+    global_batch=8,
+    n_microbatches=2,
+    peak_lr=6e-4,
+    warmup=10,
+    ckpt_every=10,
+    log_every=5,
+)
+TRAIN_NAN_STEP = 15
+TRAIN_RESUME_STEPS = 32
+TRAIN_CHECK_TOKENS = (1, 256)  # (a)'s full-width mamba2-130m, card against CPU
+DENSE_TRAIN = dict(
+    arch="minitron-4b", n_layers=8, steps=6, seq_len=2048, global_batch=8, n_microbatches=4
+)
 # The fleet phase's tuning rounds: benchmarks/tune_controller.py's flash-crowd
 # predictive-tuning scenario, raced as (candidates, seeds, seconds at dt 5 s, tile).
 # 24 x 12 x 720 bins is benchmarks/sim_perf.py's headline; 512 at tile 512 is the
@@ -1253,6 +1287,236 @@ def encdec_phase(dev, card, flash_module):
     return rec
 
 
+def training_batch(cfg, B, S, seed):
+    """Tokens, next-token targets and, for an enc-dec config, 2 S frames, drawn on the
+    CPU from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    if cfg.encdec:
+        batch["frames"] = torch.randn(B, 2 * S, cfg.d_model, generator=g)
+    return batch
+
+
+def grads_card_vs_cpu(cfg, dev, B, S):
+    """The loss and every gradient of a trainable ``cfg`` in float32 on the card
+    against the CPU, on the same weights (drawn on the CPU) and batch. Returns (loss
+    relative error, {parameter: max |error| / max |gradient|}, {parameter: max
+    |gradient| on the card}, gradient norm relative error)."""
+    from repro_torch.models import Model, build_model
+    from repro_torch.optim import global_norm
+
+    cpu = build_model(cfg, "cpu", torch.Generator().manual_seed(0), trainable=True)
+    card = Model.from_numpy(cfg, cpu.to_numpy(), dev, trainable=True)
+    batch = training_batch(cfg, B, S, seed=1)
+    out = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        loss, _ = model.loss({k: t.to(d) for k, t in batch.items()})
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        out.append((float(loss.detach()), grads, float(global_norm(grads))))
+    (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = out
+    rel = {
+        n: float((g_card[n].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        for n, g in g_cpu.items()
+    }
+    top = {n: float(g.abs().max()) for n, g in g_card.items()}
+    del cpu, card, out, g_card
+    torch.cuda.empty_cache()
+    return abs(l_card - l_cpu) / abs(l_cpu), rel, top, abs(n_card - n_cpu) / n_cpu
+
+
+def train_step_split(sb, pipe, steps):
+    """``steps`` train_steps on ``pipe``'s batches, each split into "forward + backward"
+    and "AdamW" by step_timer. Returns (per-step splits, the losses)."""
+    splits, losses = [], []
+    for i in range(steps):
+        split, step = step_timer()
+        metrics = sb.train_step(pipe.batch(i), step=step)
+        losses.append(float(metrics["loss"]))
+        splits.append(split)
+    return splits, losses
+
+
+def training_phase(dev, card, flash_module):
+    """Phase 16: training, through the port's trainer and StepBuilder. (a) every smoke
+    arch's loss and gradients in float32 on the card against the CPU (wq, wk and wv
+    nonzero), and the full-width mamba2-130m's loss and gradient norm; (b) mamba2-130m
+    at full width, not cut, through ``launch.train.train``: the NaN restart, the falling
+    loss, the checkpoints and a second job's resume, the warm step's seconds, tokens/s,
+    the AdamW step alone, peak memory and the step's FLOP bound; (c) minitron-4b at full
+    width with its depth cut to 8: the step split, peak memory and bound. K2 may launch
+    no time in the phase. Returns the phase's record."""
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.launch.steps import StepBuilder
+    from repro_torch.launch.train import TrainJob, train
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    t_phase = time.perf_counter()
+    print(f"== 16. training on {card}")
+    rec = {"card": card}
+    flash_module.launches = 0
+
+    # (a) card against CPU: the smoke archs, then the full-width mamba2-130m
+    rec["card_vs_cpu"] = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True).replace(dtype="float32")
+        loss_err, rel, top, _ = grads_card_vs_cpu(cfg, dev, 2, 32)
+        worst = max(rel, key=rel.get)
+        attn = {n: v for n, v in top.items() if n.split(".")[-1] in ("wq", "wk", "wv")}
+        print(
+            f"  {cfg.name} float32: loss rel err {loss_err:.2e} (bar 1e-5), worst gradient "
+            f"{worst} {rel[worst]:.2e} of its max (bar 1e-4); {len(attn)} wq/wk/wv leaves, "
+            f"smallest max |g| {min(attn.values(), default=float('nan')):.3e}"
+        )
+        expect(loss_err <= 1e-5, f"{arch}: the loss on the card disagrees with the CPU")
+        expect(rel[worst] <= 1e-4, f"{arch}: {worst}'s gradient disagrees with the CPU")
+        expect(all(v > 0 for v in attn.values()), f"{arch}: a wq/wk/wv gradient is zero")
+        expect(bool(attn) == (cfg.family != "ssm"), f"{arch}: attention leaves {sorted(attn)}")
+        rec["card_vs_cpu"][arch] = dict(loss_rel_err=loss_err, worst_grad_rel_err=rel[worst])
+    cfg = get_config(TRAIN_JOB["arch"]).replace(dtype="float32")
+    loss_err, rel, _, norm_err = grads_card_vs_cpu(cfg, dev, *TRAIN_CHECK_TOKENS)
+    print(
+        f"  {cfg.name} full width float32, {TRAIN_CHECK_TOKENS[0]} x {TRAIN_CHECK_TOKENS[1]}: "
+        f"loss rel err {loss_err:.2e} (bar 1e-5), gradient norm rel err {norm_err:.2e} (bar "
+        f"1e-4), worst leaf {max(rel.values()):.2e} of its max"
+    )
+    expect(loss_err <= 1e-5, f"{cfg.name}: the full-width loss disagrees with the CPU")
+    expect(norm_err <= 1e-4, f"{cfg.name}: the full-width gradient norm disagrees with the CPU")
+    rec["card_vs_cpu"][cfg.name + " full width"] = dict(
+        loss_rel_err=loss_err, grad_norm_rel_err=norm_err, worst_grad_rel_err=max(rel.values())
+    )
+
+    # (b) mamba2-130m at full width through the trainer
+    cfg = get_config(TRAIN_JOB["arch"])
+    tokens = TRAIN_JOB["global_batch"] * TRAIN_JOB["seq_len"]
+    n_params = cfg.param_counts()["total"]
+    bound_s = 8.0 * n_params * tokens / BF16_FLOPS
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        job = TrainJob(
+            **TRAIN_JOB,
+            ckpt_dir=ckpt_dir,
+            injector=FaultInjector(nan_steps={TRAIN_NAN_STEP}),
+            device=dev,
+        )
+        torch.cuda.reset_peak_memory_stats()
+        m = train(job)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in job.history]
+        warm = [h["dt"] for h in job.history[1:]]
+        resume = TrainJob(
+            **dict(TRAIN_JOB, steps=TRAIN_RESUME_STEPS), ckpt_dir=ckpt_dir, device=dev
+        )
+        train(resume)
+    step_s = statistics.median(warm)
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(
+        f"  {cfg.name}: {len(job.history)} steps run, restarts {m['restarts']}, loss "
+        f"{first5:.4f} (first 5) -> {last5:.4f} (last 5); the second job resumed at step "
+        f"{resume.history[0]['step']}"
+    )
+    expect(m["restarts"] == 1 and m["steps"] == TRAIN_JOB["steps"], f"{cfg.name}: {m}")
+    expect(last5 < first5, f"{cfg.name}: the loss did not fall ({first5} -> {last5})")
+    expect(resume.history[0]["step"] >= TRAIN_JOB["steps"], "the second job started over")
+    sb = StepBuilder(cfg, TRAIN_JOB["n_microbatches"], device=dev)
+    pipe = TokenPipeline(
+        cfg.vocab_size, TRAIN_JOB["seq_len"], TRAIN_JOB["global_batch"], device=dev
+    )
+    splits, _ = train_step_split(sb, pipe, 4)
+    adamw_s = statistics.median(s["AdamW"] for s in splits[1:])
+    fb_s = statistics.median(s["forward + backward"] for s in splits[1:])
+    del sb, pipe
+    torch.cuda.empty_cache()
+    print(
+        f"  {cfg.name} ({card}): warm step median {step_s:.4f} s ({tokens / step_s:,.0f} "
+        f"tokens/s; {len(warm)} warm steps {min(warm):.4f}-{max(warm):.4f} s), peak "
+        f"{peak / 2**30:.2f} GiB; split alone: forward + backward {fb_s:.4f} s, AdamW "
+        f"{adamw_s:.4f} s; bound 8 N tokens = {8.0 * n_params * tokens / 1e12:.2f} TFLOP, "
+        f"{bound_s * 1e3:.2f} ms at bf16 989 TFLOP/s ({bound_s / step_s:.1%} of the step)"
+    )
+    rec[cfg.name] = dict(
+        job=dict(TRAIN_JOB),
+        parameters=n_params,
+        restarts=m["restarts"],
+        losses=losses,
+        first5=first5,
+        last5=last5,
+        resumed_at=resume.history[0]["step"],
+        step_s=step_s,
+        warm_steps_s=warm,
+        tokens_per_s=tokens / step_s,
+        forward_backward_s=fb_s,
+        adamw_s=adamw_s,
+        peak_gib=peak / 2**30,
+        bound_ms=bound_s * 1e3,
+        bound_share=bound_s / step_s,
+    )
+
+    # (c) minitron-4b at full width, its depth cut 32 -> 8
+    d = DENSE_TRAIN
+    full = get_config(d["arch"])
+    cfg = full.replace(n_layers=d["n_layers"])
+    counts = cfg.param_counts()
+    tokens = d["global_batch"] * d["seq_len"]
+    embed = cfg.d_model * cfg.vocab_size
+    layer_params = counts["total"] - embed * (1 if cfg.tie_embeddings else 2)
+    attn_pass = 4.0 * d["global_batch"] * cfg.n_heads * cfg.head_dim * d["seq_len"] ** 2
+    flops = 8.0 * layer_params * tokens + 6.0 * embed * tokens + 4 * cfg.n_layers * attn_pass
+    bound_s = flops / BF16_FLOPS
+    print(
+        f"  {cfg.name}: depth cut {full.n_layers} -> {cfg.n_layers}, {counts['total']:,.0f} "
+        f"parameters ({16 * counts['total'] / 1e9:.1f} GB of float32 parameters, gradients, "
+        f"m and v), {d['global_batch']} x {d['seq_len']} tokens in {d['n_microbatches']} "
+        "microbatches"
+    )
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 2, d["steps"]))
+    sb = StepBuilder(cfg, d["n_microbatches"], opt, device=dev)
+    pipe = TokenPipeline(cfg.vocab_size, d["seq_len"], d["global_batch"], device=dev)
+    splits, losses = train_step_split(sb, pipe, d["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    del sb, pipe
+    torch.cuda.empty_cache()
+    fb_s = statistics.median(s["forward + backward"] for s in splits[1:])
+    adamw_s = statistics.median(s["AdamW"] for s in splits[1:])
+    step_s = statistics.median(sum(s.values()) for s in splits[1:])
+    print(
+        f"  {cfg.name} ({card}): losses {', '.join(f'{x:.4f}' for x in losses)}; warm step "
+        f"median {step_s:.4f} s ({tokens / step_s:,.0f} tokens/s): forward + backward "
+        f"{fb_s / d['n_microbatches']:.4f} s a microbatch, AdamW {adamw_s:.4f} s; peak "
+        f"{peak / 2**30:.2f} GiB; bound {flops / 1e12:.1f} TFLOP (layers 8 N, unembed 6 N, "
+        f"attention 4 passes of the full rectangle), {bound_s * 1e3:.1f} ms at bf16 989 "
+        f"TFLOP/s ({bound_s / step_s:.1%} of the step)"
+    )
+    expect(all(np.isfinite(losses)), f"{cfg.name}: a loss is not finite: {losses}")
+    expect(peak < 80e9, f"{cfg.name}: peak {peak / 1e9:.1f} GB")
+    rec[cfg.name] = dict(
+        depth_cut=[full.n_layers, cfg.n_layers],
+        parameters=counts["total"],
+        losses=losses,
+        step_s=step_s,
+        tokens_per_s=tokens / step_s,
+        forward_backward_microbatch_s=fb_s / d["n_microbatches"],
+        adamw_s=adamw_s,
+        splits=splits,
+        peak_gib=peak / 2**30,
+        bound_tflop=flops / 1e12,
+        bound_ms=bound_s * 1e3,
+        bound_share=bound_s / step_s,
+    )
+    rec["k2_launches"] = flash_module.launches
+    print(f"  K2 launches in the training phase: {flash_module.launches}")
+    expect(flash_module.launches == 0, "training launched the flash kernel")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the training phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def checked(label, fn, *args):
     """Run one of the shared CPU-test checks (tests/torch_fleet_cases.py) on the card;
     a failed assertion in it fails the smoke run."""
@@ -2248,6 +2512,10 @@ def main():
     k2_encdec = list(encdec["k2"].values())
     print(json.dumps({"encdec": encdec}))
 
+    # ----------------------------------------------------------- 16. training
+    training = training_phase(dev, card, flash_module)
+    print(json.dumps({"training": training}))
+
     # ------------------------------------------------------------ 10. fleet
     fleet = fleet_phase(dev, card)
     print(json.dumps({"fleet": fleet}))
@@ -2301,6 +2569,7 @@ def main():
             "families": dict(zip(("olmoe-1b-7b", "jamba-v0.1-52b"), k2_families)),
             "encdec": dict(encdec["k2"], launches=encdec[ENCDEC_ARCH]["k2_launches"]),
             "prefill_32k": flash_timings["prefill_32k"],
+            "training_launches": training["k2_launches"],
             "serve_f32": flash_timings["serve_f32"],
         },
         {

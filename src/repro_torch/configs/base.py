@@ -66,10 +66,11 @@ class ArchConfig:
     frontend: str = "none"  # none | audio | vision
 
     # --- numerics / perf knobs ---
-    # remat, use_flash_kernel, scan_layers and unroll are kept so that a config
-    # compares field for field with the reference's; the port reads none of them.
-    # Its attention picks the flash kernel from the tensors' device alone (CUDA:
-    # the kernel, CPU: the plain version), whatever use_flash_kernel says.
+    # use_flash_kernel, scan_layers and unroll are kept so that a config compares
+    # field for field with the reference's; the port reads none of them. Its serving
+    # attention picks the flash kernel from the tensors' device alone (CUDA: the
+    # kernel, CPU: the plain version), whatever use_flash_kernel says; its training
+    # attention is the reference's plain one. remat is read by the training forward.
     dtype: str = "bfloat16"
     remat: str = "full"  # full | none  (activation checkpointing per layer)
     use_flash_kernel: bool = False  # Pallas attention on real TPU (reference)

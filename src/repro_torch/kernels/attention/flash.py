@@ -72,8 +72,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with H % K == 0, CUDA tensors, all float32
     or all bfloat16, each with a contiguous last dim (bfloat16: laid out for TMA, see
     ``check_tma_layout``). Returns (B, S, H, hd) in q's dtype.
+
+    The kernel has no backward, so it refuses inputs that need a gradient: its output
+    would carry none to them (training runs ``models.layers._sdpa_heads``).
     """
     global launches
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_cuda (K2) has no backward: its output would carry no gradient "
+            "to q, k and v. Training attention runs models.layers._sdpa_heads, the "
+            "reference's plain _sdpa; call K2 under torch.no_grad() or on detached inputs"
+        )
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash_attention_cuda needs q, k, v on one CUDA device, got "

@@ -1,13 +1,17 @@
 """Model building blocks: norms, RoPE, sinusoidal positions, GQA attention (prefill,
-decode, the encoder's bidirectional mode and cross-attention), MLP variants,
-embeddings. Counterpart of the JAX package's ``models/layers.py``.
+decode, the encoder's bidirectional mode, cross-attention, and the training forms of
+causal, bidirectional and cross attention), MLP variants, embeddings. Counterpart of
+the JAX package's ``models/layers.py``.
 
 Parameters keep the reference's names and layouts, (d, H, hd) for ``wq``,
 (d, K, hd) for ``wk``/``wv`` and (H, hd, d) for ``wo``, so that a reference
 parameter tree moves across as it is (``Model.from_numpy``). The reference keeps
 every parameter in float32 and casts matmul weights and embedding rows to the
-working dtype at use; the port stores those in the working dtype, which gives the
-same values, and keeps norm scales and biases in float32.
+working dtype at use (embedding rows after the gather). A serving model stores those
+in the working dtype, which gives the same values, and keeps norm scales and biases in
+float32; a model for training stores every parameter in float32, as the reference
+does, so that its gradients are summed in float32. Every use casts to the input's
+dtype (``w.to(x.dtype)``, the tensor itself when it is stored in that dtype).
 
 Every ``step`` argument is a hook ``step(name, fn) -> fn()`` through which a caller
 can time the sublayers; the default just calls ``fn``.
@@ -174,14 +178,16 @@ class Attention(nn.Module):
     def _q(self, x):
         """The query projection, qk-normed when the config says so (no RoPE)."""
         B, S, d = x.shape
-        q = (x @ self.wq.view(d, -1)).view(B, S, self.cfg.n_heads, self.cfg.head_dim)
+        q = x @ self.wq.to(x.dtype).view(d, -1)
+        q = q.view(B, S, self.cfg.n_heads, self.cfg.head_dim)
         return rms_norm_nohead(q, self.q_norm) if self.cfg.qk_norm else q
 
     def _kv(self, x):
         """The key and value projections (B, S, K, hd), neither normed nor rotated."""
         B, S, d = x.shape
         shape = (B, S, self.cfg.n_kv_heads, self.cfg.head_dim)
-        return (x @ self.wk.view(d, -1)).view(shape), (x @ self.wv.view(d, -1)).view(shape)
+        k = x @ self.wk.to(x.dtype).view(d, -1)
+        return k.view(shape), (x @ self.wv.to(x.dtype).view(d, -1)).view(shape)
 
     def cross_kv(self, enc_out):
         """The reference's ``cross_kv``: the encoder output's keys and values in the
@@ -202,7 +208,7 @@ class Attention(nn.Module):
 
     def _out(self, o):
         B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo.view(-1, self.cfg.d_model)
+        return o.reshape(B, S, -1) @ self.wo.to(o.dtype).view(-1, self.cfg.d_model)
 
     def forward(
         self, x, *, mode: str, positions=None, cache=None, pos=None, kv_x=None, step=_run
@@ -252,6 +258,81 @@ class Attention(nn.Module):
             return self._out(out), cache
         raise ValueError(f"unknown attention mode {mode!r}")
 
+    def forward_train(self, x, *, mode: str, positions=None, kv_x=None, q_chunk: int = 1024):
+        """The reference's training attention (``attention`` in modes causal, bidir and
+        cross, without the cache it returns): causal and bidir over x with RoPE at
+        ``positions``; cross with queries from x and keys and values from ``kv_x``,
+        unrotated. No cache, nothing written in place, and never K2: the reference
+        trains through its plain ``_sdpa`` (``_sdpa_heads`` here), and K2 has no
+        backward."""
+        if mode in ("causal", "bidir"):
+            q, k, v = self._qkv(x, positions)
+        elif mode == "cross":
+            q = self._q(x)
+            k, v = self._kv(kv_x)
+            if self.cfg.qk_norm:
+                k = rms_norm_nohead(k, self.k_norm)
+        else:
+            raise ValueError(f"attention has no training mode {mode!r}")
+        out = _sdpa_heads(self.cfg, q, k, v, causal=mode == "causal", q_chunk=q_chunk)
+        return self._out(out)
+
+
+def _sdpa_heads(
+    cfg: ArchConfig, q, k, v, *, causal: bool, q_offset=0, kv_valid_len=None, q_chunk: int = 1024
+):
+    """The reference's ``_sdpa`` in its heads layout, the attention it trains through:
+    KV heads repeated to H (``repeat_interleave``, jnp.repeat's order), scores in the
+    working dtype then float32 and scaled, the causal and ``kv_valid_len`` masks at
+    -1e30, a float32 softmax whose weights are cast back before P·V; queries in chunks
+    of ``q_chunk`` (Sq a multiple of it when longer), each over every key, or with
+    ``cfg.causal_block_skip`` (causal, from position 0, no kv_valid_len) in up to 8
+    buckets of chunks, bucket b over the keys [0, (b + 1) Sq / nb).
+
+    q: (B, Sq, H, hd); k/v: (B, Skv, K, hd). q_offset: absolute position of q[0].
+    Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    K = k.shape[2]
+    if K != H:
+        k = k.repeat_interleave(H // K, dim=2)  # (B, Skv, H, hd)
+        v = v.repeat_interleave(H // K, dim=2)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+
+    def chunk_attn(qc, row0, kc, vc, kvp):
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() * scale
+        mask = None
+        if causal:
+            rows = row0 + torch.arange(qc.shape[1], device=q.device)
+            mask = kvp[None, :] <= rows[:, None]
+        if kv_valid_len is not None:
+            vm = (kvp < kv_valid_len)[None, :]
+            mask = vm if mask is None else (mask & vm)
+        if mask is not None:
+            s = torch.where(mask, s, -1e30)
+        w = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", w, vc)
+
+    if Sq <= q_chunk:
+        return chunk_attn(q, q_offset, k, v, kv_pos)
+    if Sq % q_chunk:
+        raise ValueError(f"seq {Sq} not divisible by q_chunk {q_chunk}")
+    n = Sq // q_chunk
+    chunks = q.split(q_chunk, dim=1)
+    if causal and cfg.causal_block_skip and q_offset == 0 and kv_valid_len is None:
+        # bucketed block-causal: bucket b's q chunks read only kv[0:(b+1)*S/nb]
+        nb = min(8, n)
+        while n % nb:
+            nb -= 1
+        per = n // nb
+        outs = []
+        for i, qc in enumerate(chunks):
+            hi = (i // per + 1) * per * q_chunk
+            outs.append(chunk_attn(qc, i * q_chunk, k[:, :hi], v[:, :hi], kv_pos[:hi]))
+        return torch.cat(outs, dim=1)
+    outs = [chunk_attn(qc, q_offset + i * q_chunk, k, v, kv_pos) for i, qc in enumerate(chunks)]
+    return torch.cat(outs, dim=1)
+
 
 def _sdpa(q, k, v):
     """The reference's ``_sdpa`` with no mask, in plain torch as the reference
@@ -295,14 +376,14 @@ class MLP(nn.Module):
             dense_init_(self.w_gate, generator)
 
     def forward(self, x):
-        h = x @ self.w_up
+        h = x @ self.w_up.to(x.dtype)
         if self.mlp_type == "swiglu":
-            h = F.silu(x @ self.w_gate) * h
+            h = F.silu(x @ self.w_gate.to(x.dtype)) * h
         elif self.mlp_type == "relu2":
             h = F.relu(h).square()
         else:
             h = F.gelu(h, approximate="tanh")
-        return h @ self.w_down
+        return h @ self.w_down.to(h.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +392,14 @@ class MLP(nn.Module):
 
 
 class Embed(nn.Module):
-    """``init_embed``/``embed_tokens``/``unembed``: token rows, and an output head
-    (the transposed token table when embeddings are tied)."""
+    """``init_embed``/``embed_tokens``/``unembed``: token rows, cast to the working
+    dtype after the gather, and an output head (the transposed token table when
+    embeddings are tied)."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
         self.tie = cfg.tie_embeddings
-        dt = working_dtype(cfg)
+        self.dtype = dt = working_dtype(cfg)
         self.tok = _param((cfg.vocab_size, cfg.d_model), dt, device)
         if not cfg.tie_embeddings:
             self.unembed = _param((cfg.d_model, cfg.vocab_size), dt, device)
@@ -328,7 +410,7 @@ class Embed(nn.Module):
             dense_init_(self.unembed, generator)
 
     def embed_tokens(self, tokens):
-        return self.tok[tokens]
+        return self.tok[tokens].to(self.dtype)
 
     def logits(self, x):
-        return x @ (self.tok.T if self.tie else self.unembed)
+        return x @ (self.tok.T if self.tie else self.unembed).to(x.dtype)

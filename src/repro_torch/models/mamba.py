@@ -6,7 +6,8 @@ states across chunks); decode the O(1) recurrent update. State math in float32,
 projections in the working dtype.
 
 Parameter dtypes follow what the reference reads, not only what it stores: ``w_in``
-and ``w_out`` are matmul weights and live in the working dtype, as in ``layers.py``;
+and ``w_out`` are matmul weights and live in the working dtype, as in ``layers.py``
+(float32 in a model for training, cast at use);
 ``conv_w`` is read in float32 at decode and in the working dtype at prefill, and
 ``D`` likewise, so both stay float32 masters, cast at use, as do ``conv_b``,
 ``A_log``, ``dt_bias`` and ``norm``.
@@ -90,7 +91,8 @@ def ssd_chunked(cfg: ArchConfig, xh, dt, A, Bm, Cm, init_state=None):
     ldiff = ci[..., :, None] - ci[..., None, :]  # (B, nc, H, Q, Q)
     mask = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
     # zero the masked exponents before exp: above the diagonal ldiff is large and
-    # positive (ca decreases), and exp would overflow to inf
+    # positive (ca decreases), exp would overflow to inf, and the outer where's
+    # backward would multiply that inf by 0 (NaN gradients in training)
     L = torch.where(mask, torch.exp(torch.where(mask, ldiff, 0.0)), 0.0)
     M = gates * L * dtf.transpose(2, 3)[..., None, :]  # * dt_j
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", M, xf)
@@ -129,7 +131,7 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run):
     Pd, W = cfg.ssm_headdim, cfg.conv_width
     A = -torch.exp(p["A_log"])
 
-    zxbcdt = step("in_proj", lambda: x @ p["w_in"])
+    zxbcdt = step("in_proj", lambda: x @ p["w_in"].to(dt_m))
     z, xbc, dtr = _split_proj(cfg, zxbcdt)
 
     if cache is not None and pos is not None:
@@ -151,7 +153,7 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run):
         y = rms_norm_nohead(y * F.silu(z.float()).to(dt_m), p["norm"])
         cache["conv"].copy_(window[:, 1:, :])
         cache["state"].copy_(state)
-        return y @ p["w_out"], cache
+        return y @ p["w_out"].to(dt_m), cache
 
     # ---- prefill / no cache: the chunked scan ----
     xbc_c = step("conv", lambda: _causal_conv(cfg, p, xbc))
@@ -172,7 +174,7 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run):
         return rms_norm_nohead(yd * F.silu(z.float()).to(dt_m), p["norm"])
 
     yn = step("gate + norm", gate_norm)
-    out = step("out_proj", lambda: yn @ p["w_out"])
+    out = step("out_proj", lambda: yn @ p["w_out"].to(dt_m))
     if cache is not None:
         cache["conv"].copy_(xbc[:, -(W - 1) :, :])
         cache["state"].copy_(final_state)

@@ -1,9 +1,10 @@
-"""Public model API: ``build_model(cfg)`` -> ``Model`` with prefill / decode and a
-KV cache; counterpart of the JAX package's ``models/model.py`` (serving only).
+"""Public model API: ``build_model(cfg)`` -> ``Model`` with loss, prefill / decode
+and a KV cache; counterpart of the JAX package's ``models/model.py``.
 
 ``Model.from_numpy`` takes the reference's ``init_values`` tree (numpy arrays, each
 block parameter with the leading ``stack`` dim) and ``to_numpy`` gives it back, so
-both packages can compute the same thing on the same weights.
+both packages can compute the same thing on the same weights; the same tree carries
+AdamW's moments and checkpoints across.
 """
 
 from __future__ import annotations
@@ -23,9 +24,13 @@ class Model(nn.Module):
     attention. ``Model(cfg, device)``
     allocates the parameters uninitialised on ``device`` (None -> cuda); ``build_model``
     draws them, ``from_numpy`` copies them in. The two together stand for the
-    reference's ``init_lm``."""
+    reference's ``init_lm``.
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    A serving model stores its matmul weights and embeddings in the working dtype and
+    takes no gradients; a ``trainable`` one stores every parameter in float32 with
+    ``requires_grad``, as the reference keeps them, and casts each at use."""
+
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -37,6 +42,8 @@ class Model(nn.Module):
             self.enc_program = transformer.block_program(cfg, decoder=False)
             self.enc_blocks = _stack(cfg, self.enc_program, cfg.n_enc_layers, device)
             self.enc_norm = layers.Norm(cfg, cfg.d_model, device)
+        if trainable:
+            self.float().requires_grad_(True)
 
     @property
     def device(self) -> torch.device:
@@ -51,6 +58,11 @@ class Model(nn.Module):
         return self
 
     # ---- steps ----
+    def loss(self, batch, **kw):
+        """The training loss: ``transformer.loss_fn`` on batch {"tokens", "targets", and
+        for an enc-dec model "frames" or "src_tokens"}. Returns (loss, metrics)."""
+        return transformer.loss_fn(self, batch, **kw)
+
     @torch.no_grad()
     def prefill(self, tokens, cache=None, step=layers._run, *, frames=None, src_tokens=None):
         """tokens (B, S) -> (cache, last-token logits (B, 1, V)). Without a cache, one
@@ -112,7 +124,7 @@ class Model(nn.Module):
         return progs
 
     def _tree_leaves(self):
-        """(path in the reference's tree, stack index or None, parameter) for each
+        """(name, path in the reference's tree, stack index or None, parameter) for each
         parameter; block parameters (``blocks``, ``enc_blocks``) are stacked over the
         layers of one position."""
         periods = {name: len(prog) for name, prog in self._programs().items()}
@@ -120,39 +132,65 @@ class Model(nn.Module):
             parts = name.split(".")
             if parts[0] in periods:
                 i, P = int(parts[1]), periods[parts[0]]
-                yield (parts[0], i % P, *parts[2:]), i // P, p
+                yield name, (parts[0], i % P, *parts[2:]), i // P, p
             else:
-                yield tuple(parts), None, p
+                yield name, tuple(parts), None, p
 
-    def to_numpy(self) -> dict:
-        """The parameters as the reference's ``init_values`` tree, in float32."""
+    def _tree(self, convert, stack, values=None) -> dict:
+        """The reference's parameter tree of the parameters (or of ``values[name]`` for
+        each parameter name): each leaf ``convert(tensor)``, a stacked leaf ``stack`` of
+        its layers' in stack order."""
+        groups: dict = {}
+        for name, path, s, p in self._tree_leaves():
+            groups.setdefault(path, {})[s] = p if values is None else values[name]
         tree: dict = {}
-        stacks: dict = {}
-        for path, s, p in self._tree_leaves():
-            a = p.detach().float().cpu().numpy()
-            if s is None:
-                _set(tree, path, a)
+        for path, by_stack in groups.items():
+            if None in by_stack:
+                _set(tree, path, convert(by_stack[None]))
             else:
-                stacks.setdefault(path, {})[s] = a
-        for path, by_stack in stacks.items():
-            _set(tree, path, np.stack([by_stack[s] for s in sorted(by_stack)]))
+                _set(tree, path, stack([convert(by_stack[s]) for s in sorted(by_stack)]))
         for name, prog in self._programs().items():
             tree[name] = tuple(tree[name][j] for j in range(len(prog)))
         return tree
 
-    @classmethod
-    def from_numpy(cls, cfg: ArchConfig, params: dict, device=None) -> "Model":
-        """A model holding the reference tree ``params`` (numpy or anything
-        ``np.asarray`` takes), on ``device`` (None -> cuda)."""
-        model = cls(cfg, device)
+    def to_numpy(self, values: dict | None = None) -> dict:
+        """The parameters (or ``values``, a tensor for each parameter name, such as
+        AdamW's moments) as the reference's ``init_values`` tree, in float32."""
+
+        def host(t):  # a copy, never a view of a parameter on the CPU
+            return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+        return self._tree(host, np.stack, values)
+
+    def tree_like(self) -> dict:
+        """The reference's parameter tree with a meta tensor of each leaf's shape and no
+        data: the structure ``Checkpointer.restore`` takes."""
+
+        def stack(ts):
+            return torch.empty((len(ts), *ts[0].shape), device="meta")
+
+        return self._tree(lambda t: torch.empty(t.shape, device="meta"), stack)
+
+    def load_numpy(self, params: dict, into: dict | None = None) -> "Model":
+        """Copy the reference tree ``params`` (numpy or anything ``np.asarray`` takes)
+        into the parameters, or into ``into[name]`` for each parameter name."""
         with torch.no_grad():
-            for path, s, p in model._tree_leaves():
+            for name, path, s, p in self._tree_leaves():
                 a = _get(params, path)
                 a = np.asarray(a if s is None else a[s])
                 if a.shape != tuple(p.shape):
                     raise ValueError(f"{'.'.join(map(str, path))}: {a.shape} vs {tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.array(a, np.float32)))
-        return model
+                dst = p if into is None else into[name]
+                dst.copy_(torch.from_numpy(np.array(a, np.float32)))
+        return self
+
+    @classmethod
+    def from_numpy(
+        cls, cfg: ArchConfig, params: dict, device=None, trainable: bool = False
+    ) -> "Model":
+        """A model holding the reference tree ``params`` (numpy or anything
+        ``np.asarray`` takes), on ``device`` (None -> cuda)."""
+        return cls(cfg, device, trainable).load_numpy(params)
 
 
 def _stack(cfg: ArchConfig, program: list[dict], n_layers: int, device) -> nn.ModuleList:
@@ -173,10 +211,15 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def build_model(cfg: ArchConfig, device=None, generator: torch.Generator | None = None) -> Model:
+def build_model(
+    cfg: ArchConfig,
+    device=None,
+    generator: torch.Generator | None = None,
+    trainable: bool = False,
+) -> Model:
     """A model with random weights drawn on ``device`` (None -> cuda) from
     ``generator`` (None -> a generator on that device seeded with 0)."""
-    model = Model(cfg, device)
+    model = Model(cfg, device, trainable)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
     return model.init_weights(generator)

@@ -34,14 +34,14 @@ F32 = torch.float32
 def _expert_ffn(mlp_type: str, p, xg):
     """xg: (E, C, d) -> (E, C, d) through each expert's FFN (``p``: w_up, w_down and,
     for swiglu, w_gate, each stacked over E)."""
-    h = torch.bmm(xg, p["w_up"])
+    h = torch.bmm(xg, p["w_up"].to(xg.dtype))
     if mlp_type == "swiglu":
-        h = F.silu(torch.bmm(xg, p["w_gate"])) * h
+        h = F.silu(torch.bmm(xg, p["w_gate"].to(xg.dtype))) * h
     elif mlp_type == "relu2":
         h = F.relu(h).square()
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.bmm(h, p["w_down"])
+    return torch.bmm(h, p["w_down"].to(h.dtype))
 
 
 def _route(cfg: ArchConfig, logits):
@@ -81,7 +81,9 @@ def _slots(token_e, E: int, C: int):
 
 def _group(token_e, token_w, T: int, E: int, C: int):
     """The reference's ``_group``: (E, C) buffers of token ids (T, the pad row, where
-    a place is empty) and combine weights (0 there). token_e / token_w: (T * k,)."""
+    a place is empty) and combine weights (0 there). token_e / token_w: (T * k,).
+    A dropped slot's weight lands in the sentinel place, which is cut off, so its
+    gradient is zero, as the reference's ``mode="drop"`` write gives."""
     Tk = token_e.shape[0]
     slot = _slots(token_e, E, C)
     tok_ids = torch.arange(Tk, device=token_e.device, dtype=torch.int32) // (Tk // T)
@@ -121,7 +123,7 @@ def apply_moe(cfg: ArchConfig, p, x, step=_run):
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    top_i, top_w, aux = step("router + top-k", lambda: _route(cfg, xf @ p["router"]))
+    top_i, top_w, aux = step("router + top-k", lambda: _route(cfg, xf @ p["router"].to(x.dtype)))
     E = p["w_up"].shape[0]
     C = capacity(cfg, T)
 
@@ -134,10 +136,9 @@ def apply_moe(cfg: ArchConfig, p, x, step=_run):
     yg = step("expert FFNs", lambda: _expert_ffn(cfg.mlp_type, p, xg))
 
     def combine():
-        weighted = yg.new_empty(E * C + 1, d)  # the last row is the sentinel's zero
-        torch.mul(yg.view(E * C, d), w.view(E * C, 1).to(x.dtype), out=weighted[:-1])
-        weighted[-1].zero_()
-        return _combine(weighted, slot, top_i, T)
+        weighted = yg.view(E * C, d) * w.view(E * C, 1).to(x.dtype)
+        # the last row is the sentinel's zero
+        return _combine(F.pad(weighted, (0, 0, 0, 1)), slot, top_i, T)
 
     y = step("combine", combine)
     return y.view(B, S, d), aux
@@ -145,7 +146,7 @@ def apply_moe(cfg: ArchConfig, p, x, step=_run):
 
 class MoE(nn.Module):
     """``init_moe``'s parameters (no expert padding): router (d, E), w_up and w_gate
-    (E, d, ff), w_down (E, ff, d), all in the working dtype."""
+    (E, d, ff), w_down (E, ff, d), all in the working dtype (float32 for training)."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()

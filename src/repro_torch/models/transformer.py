@@ -1,4 +1,4 @@
-"""Layer-stack engine: the serving path of the JAX package's ``models/transformer.py``.
+"""Layer-stack engine: the JAX package's ``models/transformer.py``.
 
 Every architecture is described by a *block program*: the periodic pattern of
 (mixer, ffn, cross) sublayers, ``n_layers = n_stack * period`` deep. The reference
@@ -8,10 +8,12 @@ with ``lax.scan``; here the layers are an ``nn.ModuleList`` in execution order
 runs them.
 
 Ported: mixers ``attn`` and ``ssm`` with FFNs ``dense``, ``moe`` or none, in modes
-prefill and decode, which covers the dense, MoE, SSM and hybrid families; and the
-enc-dec family's two stacks, the encoder [bidirectional attention + FFN] and the
-decoder [attention + cross-attention + FFN]. ``forward_train`` and ``loss_fn`` wait for
-the training slice.
+prefill, decode and train, which covers the dense, MoE, SSM and hybrid families; and
+the enc-dec family's two stacks, the encoder [bidirectional attention + FFN] and the
+decoder [attention + cross-attention + FFN]. ``forward_train`` and ``loss_fn`` are the
+training forward and loss; with ``remat == "full"`` each period of blocks (the body
+of the reference's scan) is recomputed in the backward (``torch.utils.checkpoint``),
+which changes memory, not numbers.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, mamba, moe
@@ -117,6 +120,29 @@ class Block(nn.Module):
                 x = x + self.ffn(h, step=step)[0]
         return x
 
+    def forward_train(self, x, *, positions, enc_out=None, encoder=False, q_chunk=1024):
+        """The reference's ``_apply_block_pos`` in mode train: attention causal (bidir in
+        an encoder block) through the training attention, SSD without a cache, cross-
+        attention over ``enc_out``, the FFN. Returns (x, aux), aux the MoE's load-
+        balancing loss (0 without one)."""
+        h = self.norm1(x)
+        if self.kind == "attn":
+            mode = "bidir" if encoder else "causal"
+            out = self.mixer.forward_train(h, mode=mode, positions=positions, q_chunk=q_chunk)
+        else:
+            out, _ = self.mixer(h)
+        x = x + out
+        if self.has_cross:
+            h = self.norm_cross(x)
+            x = x + self.cross.forward_train(h, mode="cross", kv_x=enc_out, q_chunk=q_chunk)
+        aux = x.new_zeros((), dtype=torch.float32)
+        if self.ffn_kind == "dense":
+            x = x + self.ffn(self.norm2(x))
+        elif self.ffn_kind:
+            out, aux = self.ffn(self.norm2(x))
+            x = x + out
+        return x, aux
+
 
 # ---------------------------------------------------------------------------
 # public model functions
@@ -147,19 +173,88 @@ def _add_positions(cfg: ArchConfig, x, positions):
     return x + layers.sinusoidal_pos_emb(positions, cfg.d_model, x.dtype)[None]
 
 
-def _encode(model, frames=None, src_tokens=None, step=_run):
+def _run_train(model, blocks, x, positions, *, enc_out=None, encoder=False, q_chunk=1024):
+    """The reference's ``_run_stack`` in mode train over ``blocks``, one period of the
+    block program (the reference's scan body) at a time, recomputed in the backward
+    when ``cfg.remat == "full"``. Returns (x, the MoE aux losses summed)."""
+    P = len(model.enc_program if encoder else model.program)
+
+    def body(x, period):
+        aux = x.new_zeros((), dtype=torch.float32)
+        for block in period:
+            x, a = block.forward_train(
+                x, positions=positions, enc_out=enc_out, encoder=encoder, q_chunk=q_chunk
+            )
+            aux = aux + a
+        return x, aux
+
+    auxes = []
+    for s in range(0, len(blocks), P):
+        period = blocks[s : s + P]
+        if model.cfg.remat == "full":
+            x, aux = checkpoint(body, x, period, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = body(x, period)
+        auxes.append(aux)
+    return x, torch.stack(auxes).sum()
+
+
+def _encode(model, frames=None, src_tokens=None, step=_run, *, train=False, q_chunk=1024):
     """The encoder: ``frames`` (B, S, d) cast to the working dtype, or ``src_tokens``
-    (B, S) through the shared embedding; then the positions, the encoder stack and
-    ``enc_norm``. Returns (B, S, d)."""
+    (B, S) through the shared embedding; then the positions, the encoder stack (its
+    training form when ``train``) and ``enc_norm``. Returns (B, S, d)."""
     if frames is not None:
         x = frames.to(layers.working_dtype(model.cfg))
     else:
         x = step("embed", lambda: model.embed.embed_tokens(src_tokens))
     positions = torch.arange(x.shape[1], device=x.device)
     x = _add_positions(model.cfg, x, positions)
-    for block in model.enc_blocks:
-        x = block(x, mode="encode", positions=positions, step=step)
+    if train:
+        x, _ = _run_train(model, model.enc_blocks, x, positions, encoder=True, q_chunk=q_chunk)
+    else:
+        for block in model.enc_blocks:
+            x = block(x, mode="encode", positions=positions, step=step)
     return step("norms", lambda: model.enc_norm(x))
+
+
+def forward_train(model, batch, q_chunk=1024):
+    """The training forward: batch {"tokens" (B, S), and for an enc-dec model "frames"
+    or "src_tokens"} -> (logits (B, S, V) in the working dtype, the MoE aux losses
+    summed)."""
+    enc_out = None
+    if model.cfg.encdec:
+        src = {k: batch[k] for k in ("frames", "src_tokens") if k in batch}
+        enc_out = _encode(model, **src, train=True, q_chunk=q_chunk)
+    tokens = batch["tokens"]
+    x = model.embed.embed_tokens(tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _add_positions(model.cfg, x, positions)
+    x, aux = _run_train(model, model.blocks, x, positions, enc_out=enc_out, q_chunk=q_chunk)
+    return model.embed.logits(model.final_norm(x)), aux
+
+
+def loss_fn(model, batch, q_chunk=1024, z_loss: float = 1e-4, moe_aux_weight: float = 1e-2):
+    """The reference's ``loss_fn``: mean next-token NLL + z_loss * mean(lse²) +
+    moe_aux_weight * aux. With ``softmax_dtype`` float32 the logits go to float32;
+    otherwise (the reference's bf16 loss) the float32 row max is subtracted in the
+    logits' dtype, exponentiated there and summed in float32. Returns (loss, {"nll",
+    "z_loss", "moe_aux"})."""
+    logits, aux = forward_train(model, batch, q_chunk)
+    targets = batch["targets"].long()[..., None]
+    if model.cfg.softmax_dtype == "float32":
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = lf.gather(-1, targets)[..., 0]
+    else:
+        # amax: its gradient is shared among tied maxima, as jnp.max's is
+        m = logits.amax(dim=-1).float()
+        p = torch.exp(logits - m[..., None].to(logits.dtype))
+        lse = m + torch.log(p.sum(dim=-1, dtype=torch.float32))
+        ll = logits.gather(-1, targets)[..., 0].float()
+    nll = (lse - ll).mean()
+    zl = z_loss * lse.square().mean()
+    total = nll + zl + moe_aux_weight * aux
+    return total, {"nll": nll, "z_loss": zl, "moe_aux": aux}
 
 
 def forward_prefill(model, tokens, cache, step=_run, *, frames=None, src_tokens=None):

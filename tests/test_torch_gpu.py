@@ -555,3 +555,74 @@ def test_column_oracle_on_the_card_equals_the_per_cell_numpy_build(cuda):
     assert [c.to_json() for _, c in sorted(col.cells.items())] == \
         [c.to_json() for _, c in sorted(cell.cells.items())]
     assert col.build_info["sims_used"] < cell.build_info["sims_used"]
+
+
+# ------------------------------ training (no kernel of its own) ------------------------------
+
+
+def test_flash_kernel_refuses_inputs_that_need_a_gradient(cuda):
+    from repro_torch.kernels import flash_attention_cuda
+
+    q, k, v = (torch.randn(1, 64, 2, 64, device=cuda) for _ in range(3))
+    before = flash_module.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q.requires_grad_(True), k, v)
+    assert flash_module.launches == before
+    with torch.no_grad():
+        flash_attention_cuda(q, k, v)  # serving's prefill: no gradient asked for
+    flash_attention_cuda(q.detach(), k, v)
+    assert flash_module.launches == before + 2
+
+
+@pytest.mark.parametrize(
+    "arch", ["minitron-4b", "olmoe-1b-7b", "mamba2-130m", "seamless-m4t-large-v2", "jamba-v0.1-52b"]
+)
+def test_training_on_the_card_matches_the_cpu_and_never_launches_k2(cuda, arch):
+    """Loss within 1e-5 relative and every gradient within 1e-4 of its leaf's largest,
+    wq, wk and wv nonzero; K2 launched 0 times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cpu = build_model(cfg, "cpu", torch.Generator().manual_seed(0), trainable=True)
+    card = Model.from_numpy(cfg, cpu.to_numpy(), cuda, trainable=True)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+    batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+    if cfg.encdec:
+        batch["frames"] = torch.randn(2, 64, cfg.d_model, generator=g)
+    flash_module.launches = 0
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        loss, _ = model.loss({k: t.to(dev) for k, t in batch.items()})
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        results.append((float(loss.detach()), grads))
+    assert flash_module.launches == 0
+    (l_cpu, g_cpu), (l_card, g_card) = results
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name, want in g_cpu.items():
+        assert float((g_card[name] - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        if name.split(".")[-1] in ("wq", "wk", "wv"):
+            assert float(g_card[name].abs().max()) > 0, name
+
+
+def test_train_job_on_the_card_recovers_and_resumes(cuda, tmp_path):
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.launch.train import TrainJob, train
+
+    kw = dict(
+        arch="mamba2-130m",
+        seq_len=64,
+        global_batch=4,
+        ckpt_dir=str(tmp_path),
+        ckpt_every=5,
+        log_every=100,
+        device=cuda,
+    )
+    job = TrainJob(steps=15, injector=FaultInjector(nan_steps={12}), **kw)
+    m = train(job, verbose=False)
+    assert m["restarts"] == 1 and m["steps"] == 15 and m["final_loss"] < m["first_loss"]
+    job2 = TrainJob(steps=18, **kw)
+    train(job2, verbose=False)
+    assert job2.history[0]["step"] == 15

@@ -28,8 +28,12 @@ from repro.mset.sprt import SPRTParams as JaxSPRTParams
 from repro.mset.sprt import sprt as jax_sprt
 from repro_torch import core
 from repro_torch.configs import get_config, mset_paper
+from repro_torch.data import TokenPipeline
 from repro_torch.launch import scope
 from repro_torch.launch.serve import generate
+from repro_torch.launch.steps import StepBuilder
+from repro_torch.launch.train import TrainJob
+from repro_torch.launch.train import train as train_lm
 from repro_torch.models import Model, build_model
 from repro_torch.mset import MSETModel, SPRTParams, estimate, service, sprt, train
 from repro_torch.tpss import TPSSParams, draw, synthesize
@@ -267,7 +271,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.startswith("0 "), out.stdout
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = TPSSParams(n_signals=2, n_obs=8)
     z = np.zeros((2, 2), np.float32)
@@ -282,6 +286,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: build_model(get_config("minitron-4b", smoke=True)),
         lambda: generate("minitron-4b"),
         lambda: Model.from_numpy(get_config("minitron-4b", smoke=True), {}),
+        lambda: StepBuilder(get_config("mamba2-130m", smoke=True)),
+        lambda: TokenPipeline(512, 16, 2).batch(0),
+        lambda: train_lm(TrainJob("mamba2-130m", steps=1, ckpt_dir=str(tmp_path)), verbose=False),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
