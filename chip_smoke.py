@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order they run (numbered in the order they were added: 14, 15 and 16
-run after 9); any failure exits non-zero:
+Phases, in the order they run (numbered in the order they were added: 14, 15, 16 and
+17 run after 9); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
@@ -77,6 +77,21 @@ run after 9); any failure exits non-zero:
     minitron-4b at full width with its depth cut 32 -> 8 (2.23 B parameters), 6 steps of
     8 x 2048 tokens in 4 microbatches, split into forward + backward and AdamW, peak
     memory and bound; K2 launched 0 times in the phase; then one JSON line of it;
+17. analytic scoping, each step counted on meta tensors on the host
+    (``core.hlo_analysis.analyze``) and held against the card: the MSET service
+    (``mset/service.py``'s ``_estimate_sharded``) through ``run_analytic`` at
+    benchmarks/mset_service_roofline.py's three sizes, then on the card (K1 once a
+    call, CUDA events, its peak beside the analytic one), no faster than 0.95 x its
+    t_compute; every LM step phases 8, 14, 15 and 16 timed (prefill and the mean decode
+    step of each served arch at its depth, the two training steps at their
+    microbatches), probed by ``launch.dryrun.probe_cost`` and ``memory_cost``: each
+    no faster than 0.95 x its t_compute, train and decode (where the card runs the
+    probe's own ops, no K2) no faster than 0.95 x its t_step, and each training
+    step's measured peak within 20 % of its analytic peak; then the dry-run over every
+    (arch, shape) at one chip, each cell through ``launch.dryrun``'s CLI in one of
+    SWEEP_WORKERS processes, with its wall time, t_step, dominant term, peak and
+    whether ``recommend`` finds h100-1 feasible (minitron-4b's train_4k may not); then
+    one JSON line of it;
 10. the fleet simulator's compiled backend (``backend="torch"``, its bin loop a CUDA
     graph) against the numpy engine: window-sum order; the golden scenarios of
     tests/test_jax_backend.py at its bar and the substep grid bit for bit; every policy
@@ -199,6 +214,12 @@ TRAIN_CHECK_TOKENS = (1, 256)  # (a)'s full-width mamba2-130m, card against CPU
 DENSE_TRAIN = dict(
     arch="minitron-4b", n_layers=8, steps=6, seq_len=2048, global_batch=8, n_microbatches=4
 )
+# Phase 17, analytic scoping: benchmarks/mset_service_roofline.py's service sizes
+# (n_signals, n_memvec, batch), each measured with CUDA events over SERVICE_ITERS calls;
+# and the dry-run sweep's worker processes.
+SERVICE_SIZES = ((64, 512, 4096), (1024, 4096, 8192), (4096, 8192, 16384))
+SERVICE_ITERS = 10
+SWEEP_WORKERS = 8
 # The fleet phase's tuning rounds: benchmarks/tune_controller.py's flash-crowd
 # predictive-tuning scenario, raced as (candidates, seeds, seconds at dt 5 s, tile).
 # 24 x 12 x 720 bins is benchmarks/sim_perf.py's headline; 512 at tile 512 is the
@@ -824,7 +845,8 @@ def flash_times(q, k, v, shape, dtype, err, iters, label, causal=True):
 
 def serving_phases(dev, card, flash_module):
     """Phases 8 and 9: the LM serving path at full width, its launch count and split,
-    and its correctness checks. Returns the kernel's launch count."""
+    and its correctness checks. Returns the kernel's launch count and the generate
+    calls' record (prefill and decode seconds, peak memory)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
@@ -856,6 +878,11 @@ def serving_phases(dev, card, flash_module):
     expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
     same = bool((runs[0].tokens == toks).all())
     print(f"  the two calls gave the same tokens: {same}; first sequence {toks[0][:12]}")
+    record = dict(
+        prefill_s=[r.prefill_s for r in runs],
+        decode_s=[r.decode_s for r in runs],
+        peak_gib=peak / 2**30,
+    )
 
     # One prefill split by step, each step ended by a synchronize.
     split, step = step_timer()
@@ -884,7 +911,7 @@ def serving_phases(dev, card, flash_module):
     )
     expect(ok, f"decode disagrees with prefill at full width: {err}")
     card_vs_cpu(SERVE_ARCH, dev)
-    return launches
+    return launches, record
 
 
 def moe_prefill_bound(cfg, B, S):
@@ -1514,6 +1541,252 @@ def training_phase(dev, card, flash_module):
     expect(flash_module.launches == 0, "training launched the flash kernel")
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  the training phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def service_on_card(dev, n, m, b, sim_module):
+    """The MSET service's estimate (``_estimate_sharded``, K1 on the card) at n signals,
+    m memory vectors and a batch of b: random inputs from a seeded generator (a mean off
+    0 and a std off 1), one call checked (K1 launched once, finite residuals), then held
+    against its plain version on the same inputs: K from the wrapper the service calls
+    against ``similarity_ref`` at phase 3's bar, and Xhat and the residuals against the
+    service's products on that plain K, within 8 sqrt(m) eps32 of their largest
+    magnitude: K1's error changes the roundings of the sums of m terms that follow, and
+    their difference walks as sqrt(m) eps of the partial sums (eight deviations).
+    Then SERVICE_ITERS calls timed with CUDA events. Returns (seconds a call, the call's
+    peak device memory in bytes, its inputs' and outputs' included, the launches of the
+    checked call, K's largest error, Xhat's and the residuals' largest error)."""
+    from functools import partial
+
+    from repro_torch.kernels import similarity, similarity_ref
+    from repro_torch.mset import service
+
+    g = torch.Generator(device=dev).manual_seed(n + m + b)
+    D = torch.randn(m, n, generator=g, device=dev)
+    Ginv = torch.randn(m, m, generator=g, device=dev) / m
+    mean = torch.randn(n, generator=g, device=dev)
+    std = 0.5 + torch.rand(n, generator=g, device=dev)
+    X = mean + std * torch.randn(b, n, generator=g, device=dev)
+    gamma, kind = float(n) ** 0.5, "inverse_distance"
+    fn = partial(service._estimate_sharded, gamma=gamma, kind=kind)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    inputs = sum(t.numel() * 4 for t in (D, Ginv, mean, std, X))
+    torch.cuda.reset_peak_memory_stats()
+    sim_module.launches = 0
+    Xhat, resid = fn(D, Ginv, mean, std, X)
+    launches = sim_module.launches
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + inputs
+    label = f"the service at ({n}, {m}, {b})"
+    expect(launches == 1, f"{label} launched K1 {launches} times")
+    finite = bool(torch.isfinite(Xhat).all() and torch.isfinite(resid).all())
+    expect(finite and resid.shape == (b, n), f"{label} is not finite")
+
+    Xs = (X - mean) / std
+    K, K_ref = similarity(D, Xs, gamma=gamma, kind=kind), similarity_ref(D, Xs, gamma, kind)
+    k_err, k_ok = compare(K, K_ref, TOL, TOL)
+    del K, Xs
+    Xhat_ref = (Ginv @ K_ref).T @ D * std + mean
+    del K_ref
+    x_err, r_err = float((Xhat - Xhat_ref).abs().max()), float((resid - (X - Xhat_ref)).abs().max())
+    x_bar = 8 * m**0.5 * EPS32 * float(Xhat_ref.abs().max())
+    r_bar = 8 * m**0.5 * EPS32 * float((X - Xhat_ref).abs().max())
+    print(
+        f"  service ({n}, {m}, {b}) against its plain version: K max_abs_err {k_err:.3e} "
+        f"(bar {TOL:g}), Xhat {x_err:.3e} (bar {x_bar:.3e}), residuals {r_err:.3e} "
+        f"(bar {r_bar:.3e})"
+    )
+    expect(k_ok, f"{label}: K1 disagrees with similarity_ref: {k_err}")
+    expect(x_err <= x_bar and r_err <= r_bar, f"{label} disagrees with its plain version")
+    del Xhat, resid, Xhat_ref
+    ms = cuda_ms(lambda: fn(D, Ginv, mean, std, X), SERVICE_ITERS)
+    del D, Ginv, X
+    torch.cuda.empty_cache()
+    return ms / 1e3, peak, launches, k_err, max(x_err, r_err)
+
+
+def sweep_cell(cell, out):
+    """One cell of the dry-run sweep through its CLI, in a worker process."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.main(["--arch", cell[0], "--shape", cell[1], "--out", out])[0]
+
+
+def analytic_phase(dev, card, sim_module, serving, families, encdec, training):
+    """Phase 17: analytic scoping (the step counted on meta tensors, on the host) held
+    against what the card measured. (1) The MSET service: run_analytic over
+    SERVICE_SIZES on h100-1, then each size on the card (K1 once a call), equal to its
+    plain version on the same inputs and no faster than its t_compute. (2) Every LM
+    step phases 8, 14, 15 and 16 timed, probed at the same arch, shape, depth and
+    microbatches: no faster than its t_compute; train and decode, where the card runs
+    the probe's ops, no faster than its t_step; the two training peaks within 20 % of
+    the analytic one. (3) The dry-run sweep over every (arch, shape) at one chip, each
+    cell through the CLI in a worker process, with its wall time and whether recommend
+    finds h100-1 feasible. Returns the phase's
+    record."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from functools import partial
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, get_config
+    from repro_torch.core import H100, CellResult, Constraint, ContainerStress, get_shape
+    from repro_torch.core import RooflineTerms, recommend, roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.mset import service
+
+    t_phase = time.perf_counter()
+    print(f"== 17. analytic scoping against {card}")
+    rec = {"card": card}
+
+    # (1) the service
+    h100_1 = get_shape("h100-1")
+    grid = {"size": list(SERVICE_SIZES)}
+
+    def lower(params, shape):
+        fn = partial(service._estimate_sharded, gamma=1.0, kind="inverse_distance")
+        return fn, tuple(service.abstract_service_inputs(*params["size"]).values())
+
+    rows = ContainerStress(H100).run_analytic(lower, grid, [h100_1]).rows
+    rec["service"], launches, k_errs = [], 0, []
+    for row in rows:
+        n, m, b = row.params["size"]
+        seconds, peak, k1, k_err, x_err = service_on_card(dev, n, m, b, sim_module)
+        launches += k1
+        k_errs.append(k_err)
+        t, a = row.terms, row.analysis
+        print(
+            f"  service ({n}, {m}, {b}): {seconds * 1e3:.4f} ms on the card; analytic "
+            f"t_compute {t.t_compute * 1e3:.4f} ms, t_memory {t.t_memory * 1e3:.4f} ms "
+            f"(eager bytes {a['bytes_accessed']:.3e}), t_step {t.t_step * 1e3:.4f} ms, "
+            f"measured / t_step {seconds / t.t_step:.3f}; peak analytic "
+            f"{a['peak_memory_per_device'] / 2**20:.1f} MiB, measured {peak / 2**20:.1f} MiB"
+        )
+        expect(seconds >= 0.95 * t.t_compute, f"the service at ({n}, {m}, {b}) beat t_compute")
+        rec["service"].append(
+            dict(
+                size=[n, m, b],
+                seconds=seconds,
+                peak_bytes=peak,
+                k_max_abs_err=k_err,
+                xhat_max_abs_err=x_err,
+                **t.as_dict(),
+                **a,
+            )
+        )
+    rec["service_k1_launches"] = launches
+    rec["service_k1_max_abs_err"] = max(k_errs)
+
+    # (2) the LM steps the earlier phases timed, each as (kind, arch, shape, microbatches,
+    # depth cut, measured seconds, measured peak GiB or None); a decode step is probed
+    # at the middle step's position (its cache's last entry), the mean over the calls'
+    steps = []
+    for arch, r in (
+        (SERVE_ARCH, serving),
+        ("olmoe-1b-7b", families["olmoe-1b-7b"]),
+        ("mamba2-130m", families["mamba2-130m"]),
+        ("jamba-v0.1-52b", families["jamba-v0.1-52b"]),
+        (ENCDEC_ARCH, encdec[ENCDEC_ARCH]),
+    ):
+        served = ENCDEC_SERVE if arch == ENCDEC_ARCH else SERVE
+        B, S, n = served["batch"], served["prompt_len"], served["gen_tokens"]
+        cut = r.get("depth_cut", [None, None])[1]
+        # an enc-dec prefill's seq_len is its source's: enc_memory_len frames, as served
+        src = get_config(arch).enc_memory_len if arch == ENCDEC_ARCH else S
+        prefill = ShapeSpec("p", "prefill", src, B)
+        decode = ShapeSpec("d", "decode", S + n // 2 + 1, B)
+        steps.append(("prefill", arch, prefill, 1, cut, min(r["prefill_s"]), None))
+        steps.append(("decode", arch, decode, 1, cut, min(r["decode_s"]) / (n - 1), None))
+    for job in (TRAIN_JOB, DENSE_TRAIN):
+        r = training[job["arch"]]
+        shape = ShapeSpec("t", "train", job["seq_len"], job["global_batch"])
+        mb, cut = job["n_microbatches"], job.get("n_layers")
+        steps.append(("train", job["arch"], shape, mb, cut, r["step_s"], r["peak_gib"]))
+    rec["steps"] = []
+    print(
+        f"  {'step':34s} {'measured ms':>11s} {'t_compute':>9s} {'t_memory':>9s} {'t_step':>9s} "
+        f"{'t_step/meas':>11s} {'peak GiB':>9s} {'measured':>8s}"
+    )
+    for kind, arch, shape, mb, cut, seconds, peak_gib in steps:
+        cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=cut) if cut else cfg
+        t0 = time.perf_counter()
+        cost = dryrun.probe_cost(arch, shape, n_microbatches=mb, cfg_base=cfg)
+        mem, _ = dryrun.memory_cost(arch, shape, n_microbatches=mb, cfg_base=cfg)
+        probe_s = time.perf_counter() - t0
+        t = roofline(cost.flops, cost.bytes_accessed, cost.collective_bytes, 1, H100)
+        peak = mem.peak_memory_per_device / 2**30
+        name = f"{arch}{f' ({cut} layers)' if cut else ''} {kind}"
+        print(
+            f"  {name:34s} {seconds * 1e3:11.3f} {t.t_compute * 1e3:9.3f} {t.t_memory * 1e3:9.3f} "
+            f"{t.t_step * 1e3:9.3f} {t.t_step / seconds:11.3f} {peak:9.2f} "
+            f"{'-' if peak_gib is None else f'{peak_gib:8.2f}'} (probed in {probe_s:.1f} s)"
+        )
+        expect(seconds >= 0.95 * t.t_compute, f"{name}: {seconds} s beat t_compute {t.t_compute}")
+        if kind != "prefill":  # the card runs the probe's ops (no K2): the bytes bound too
+            expect(seconds >= 0.95 * t.t_step, f"{name}: {seconds} s beat t_step {t.t_step}")
+        if peak_gib is not None:
+            ratio = peak_gib / peak
+            print(f"    measured peak / analytic peak = {ratio:.4f}")
+            expect(abs(ratio - 1) <= 0.2, f"{name}: peak {peak_gib} GiB against {peak} GiB")
+        rec["steps"].append(
+            dict(
+                step=name,
+                seconds=seconds,
+                flops=cost.flops,
+                bytes_accessed=cost.bytes_accessed,
+                **t.as_dict(),
+                analytic_peak_gib=peak,
+                measured_peak_gib=peak_gib,
+                probe_s=probe_s,
+            )
+        )
+
+    # (3) the dry-run sweep over every (arch, shape), one chip, on the host
+    cells = [(a, s_) for a in ARCH_IDS for s_ in SHAPES]
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        with ProcessPoolExecutor(min(SWEEP_WORKERS, os.cpu_count()), mp_context=ctx) as pool:
+            recs = list(pool.map(partial(sweep_cell, out=out), cells))
+    sweep_s = time.perf_counter() - t0
+    rec["sweep"] = []
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"  sweep {r['arch']:22s} {r['shape']:12s} skip: {r['reason']}")
+            rec["sweep"].append(dict(arch=r["arch"], shape=r["shape"], status=r["status"]))
+            continue
+        terms = RooflineTerms(r["t_compute"], r["t_memory"], r["t_collective"])
+        row = CellResult(
+            params={},
+            shape_name="h100-1",
+            terms=terms,
+            analysis={"peak_memory_per_device": r["peak_memory_per_device"]},
+        )
+        fits = recommend([row], Constraint()).shape is not None
+        print(
+            f"  sweep {r['arch']:22s} {r['shape']:12s} t_step {r['t_step'] * 1e3:12.3f} ms "
+            f"({r['dominant']}), peak {r['peak_memory_per_device'] / 2**30:9.2f} GiB, h100-1 "
+            f"{'feasible' if fits else 'infeasible'}"
+        )
+        rec["sweep"].append(
+            dict(
+                arch=r["arch"],
+                shape=r["shape"],
+                status="ok",
+                t_step=r["t_step"],
+                dominant=r["dominant"],
+                peak_memory_per_device=r["peak_memory_per_device"],
+                h100_1_feasible=fits,
+            )
+        )
+    print(f"  the dry-run sweep: {len(cells)} cells in {sweep_s:.1f} s of wall time")
+    fits = {(r["arch"], r["shape"]): r.get("h100_1_feasible") for r in rec["sweep"]}
+    expect(not fits["minitron-4b", "train_4k"], "minitron-4b's train_4k fits one H100")
+    rec["sweep_s"] = sweep_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the analytic phase took {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -2500,7 +2773,7 @@ def main():
 
     # ------------------------------------------- 6-9. flash attention and serving
     flash_timings = flash_kernel_phases(dev, card)
-    flash_launches = serving_phases(dev, card, flash_module)
+    flash_launches, serving = serving_phases(dev, card, flash_module)
 
     # ------------------------------------------ 14. the MoE and SSM families
     families = families_phase(dev, card, flash_module)
@@ -2515,6 +2788,10 @@ def main():
     # ----------------------------------------------------------- 16. training
     training = training_phase(dev, card, flash_module)
     print(json.dumps({"training": training}))
+
+    # ----------------------------------------------- 17. analytic scoping
+    analytic = analytic_phase(dev, card, sim_module, serving, families, encdec, training)
+    print(json.dumps({"analytic": analytic}))
 
     # ------------------------------------------------------------ 10. fleet
     fleet = fleet_phase(dev, card)
@@ -2539,6 +2816,8 @@ def main():
             "replaces": "src/repro/kernels/similarity/similarity.py:47",
             "launches": launches,
             "control_launches": control["controller"]["launches"]["similarity"],
+            "analytic_launches": analytic["service_k1_launches"],
+            "analytic_max_abs_err": analytic["service_k1_max_abs_err"],
             "max_abs_err": max_abs_err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -2,6 +2,7 @@ from repro_torch.configs.base import (
     SHAPES,
     ArchConfig,
     ShapeSpec,
+    input_specs,
     model_flops,
     shape_applicable,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "ArchConfig",
     "SHAPES",
     "ShapeSpec",
+    "input_specs",
     "model_flops",
     "shape_applicable",
     "ARCH_IDS",

@@ -2,14 +2,16 @@
 
 Every assigned architecture is an ``ArchConfig``; every benchmark input shape is a
 ``ShapeSpec``. A copy of the JAX package's ``configs/base.py``, field for field, so
-that a config compares equal with the reference's. ``input_specs`` (the dry-run's
-``jax.ShapeDtypeStruct`` stand-ins) is left out until the port has a dry-run.
+that a config compares equal with the reference's. ``input_specs`` gives meta tensors
+where the reference gives ``jax.ShapeDtypeStruct`` stand-ins.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -189,6 +191,51 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
     if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
         return False, "long_500k skipped: pure full-attention arch (see DESIGN.md)"
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-tensor stand-ins) for the dry-run.
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, device="meta") -> dict:
+    """Every model input of the given step kind, as tensors on ``device`` with the
+    reference's keys and shapes and the dtypes the port's entry points take: int64
+    token ids, frames in the working dtype.
+
+    train  -> {tokens, targets[, frames | src_tokens]}
+    prefill-> {tokens[, frames | src_tokens]}
+    decode -> {tokens (B, 1), pos[, enc_out]}; ``pos`` is the int ``seq_len - 1``,
+              the step over a full cache (what the reference's masked attention over
+              the whole cache counts), and the cache comes from the model.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def ids(*dims):
+        return torch.empty(dims, dtype=torch.int64, device=device)
+
+    def acts(*dims):
+        return torch.empty(dims, dtype=dt, device=device)
+
+    specs: dict = {}
+    if shape.kind == "decode":
+        if cfg.encdec:  # the encoder memory; the port's decode reads it from the cache
+            specs["enc_out"] = acts(B, cfg.enc_memory_len, cfg.d_model)
+        specs["tokens"] = ids(B, 1)
+        specs["pos"] = S - 1
+        return specs
+    n_tok = S
+    if cfg.encdec:
+        n_tok = max(S // cfg.dec_len_fraction, 16)
+        if cfg.frontend == "audio":
+            specs["frames"] = acts(B, S, cfg.d_model)
+        else:
+            specs["src_tokens"] = ids(B, S)
+    specs["tokens"] = ids(B, n_tok)
+    if shape.kind == "train":
+        specs["targets"] = ids(B, n_tok)
+    return specs
 
 
 def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:

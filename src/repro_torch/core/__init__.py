@@ -1,5 +1,5 @@
 # ContainerStress — the paper's primary contribution: autonomous cloud-node
-# scoping via nested-loop Monte Carlo, response surfaces and a recommender.
+# scoping via nested-loop Monte Carlo + op-by-op roofline analysis on meta tensors.
 from repro_torch.core.catalog import CATALOG, CloudShape, get_shape, register_shape
 from repro_torch.core.cost_model import (
     H100,
@@ -10,6 +10,7 @@ from repro_torch.core.cost_model import (
     mfu,
     roofline,
 )
+from repro_torch.core.hlo_analysis import CompiledCost, analyze, parse_collectives
 from repro_torch.core.recommender import (
     Constraint,
     Recommendation,
@@ -37,6 +38,9 @@ __all__ = [
     "dollar_cost",
     "mfu",
     "roofline",
+    "CompiledCost",
+    "analyze",
+    "parse_collectives",
     "Constraint",
     "Recommendation",
     "elasticity_plan",

@@ -2,7 +2,8 @@
 single-node H100 GPU shapes).
 
 The v5e entries are kept so the recommender answers as the JAX package does on
-the same rows; a device mesh for a shape comes with the port's ``distributed/``.
+the same rows. ``run_analytic`` and the dry-run count one chip; a device mesh for a
+shape of more chips (``CloudShape.make_mesh``) comes with the port's ``distributed/``.
 """
 
 from __future__ import annotations

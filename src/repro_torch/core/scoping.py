@@ -4,10 +4,15 @@ Nested-loop Monte Carlo simulation over the ML design parameters (paper Fig. 1):
 for every grid cell, the workload is instantiated and its compute cost measured;
 results feed the response surfaces (surfaces.py) and the recommender.
 
-``run_measured`` times the workload on the device its tensors live on, repeated
-over Monte Carlo draws (TPSS-synthesized inputs). This is the paper's own
-methodology (it timed CPU/GPU containers). The analytic probe over compiled
-programs waits for the port's cost analysis.
+Two cost probes:
+
+* ``run_measured`` — wall-clock of the workload on the device its tensors live on,
+  repeated over Monte Carlo draws (TPSS-synthesized inputs). This is the paper's
+  own methodology (it timed CPU/GPU containers).
+* ``run_analytic`` — the workload's step run once on meta tensors and counted op by
+  op (``hlo_analysis.analyze``), then the three-term roofline cost for a catalog
+  CloudShape (no hardware needed). One chip so far: shapes of more chips wait for
+  the port's ``distributed/``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch._device import sync
-from repro_torch.core.cost_model import H100, HardwareSpec, RooflineTerms
+from repro_torch.core.catalog import CloudShape
+from repro_torch.core.cost_model import H100, HardwareSpec, RooflineTerms, dollar_cost, roofline
+from repro_torch.core.hlo_analysis import analyze
 
 
 @dataclass
@@ -80,7 +87,8 @@ def _grid(grid: dict[str, Iterable]) -> list[dict]:
 class ContainerStress:
     """workload_fn(params: dict) must return a zero-arg callable that executes one
     unit of work (inputs baked in / regenerated via MC draws) on the device the
-    workload put its tensors on.
+    workload put its tensors on; for analytic mode, lower_fn(params, shape) returns
+    (fn, meta_args) to count.
     """
 
     def __init__(self, hw: HardwareSpec = H100):
@@ -127,4 +135,53 @@ class ContainerStress:
                     f"[containerstress] {params} -> {r.mean_s * 1e3:.2f} ms "
                     f"(±{r.std_s * 1e3:.2f})"
                 )
+        return res
+
+    def run_analytic(
+        self,
+        lower_fn: Callable[[dict, CloudShape], tuple],
+        grid: dict[str, Iterable],
+        shapes: list[CloudShape],
+        n_steps_for_cost: float = 1000.0,
+        constraint: Optional[Callable[[dict], bool]] = None,
+        verbose: bool = False,
+    ) -> ScopingResult:
+        """Count every grid cell on every shape: ``lower_fn(params, shape) -> (fn,
+        meta_args)``, the cell's step and its inputs as meta tensors, which
+        ``hlo_analysis.analyze`` runs once. A cell that ``lower_fn`` finds infeasible
+        by construction (it raises ValueError) is skipped; any other error propagates.
+        Each shape must be one chip."""
+        many = [s.name for s in shapes if s.chips != 1]
+        if many:
+            raise ValueError(f"analytic scoping of {many} waits for the port's distributed/")
+        res = ScopingResult()
+        for params in _grid(grid):
+            if constraint and not constraint(params):
+                continue
+            for shape in shapes:
+                try:
+                    fn, args = lower_fn(params, shape)
+                except ValueError as e:
+                    if verbose:
+                        print(f"[containerstress] {shape.name} {params} infeasible: {e}")
+                    continue
+                cost = analyze(fn, *args)
+                terms = roofline(
+                    cost.flops, cost.bytes_accessed, cost.collective_bytes, shape.chips, self.hw
+                )
+                usd = dollar_cost(terms.t_step, n_steps_for_cost, shape.chips, self.hw)
+                r = CellResult(
+                    params=dict(params, shape=shape.chips),
+                    shape_name=shape.name,
+                    terms=terms,
+                    analysis=cost.as_dict(),
+                    usd_per_1k_steps=usd,
+                )
+                res.rows.append(r)
+                if verbose:
+                    print(
+                        f"[containerstress] {shape.name} {params}: "
+                        f"t_step={terms.t_step * 1e3:.3f} ms dom={terms.dominant} "
+                        f"${usd:.2f}/1k steps"
+                    )
         return res

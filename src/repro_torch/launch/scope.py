@@ -5,7 +5,9 @@ Measured MSET2 scoping (paper Figs. 4-5, wall-clock Monte Carlo):
     PYTHONPATH=src python -m repro_torch.launch.scope --mset --grid small
     PYTHONPATH=src python -m repro_torch.launch.scope --mset --grid small --device cpu
 
-Analytic LM scoping waits for the port's LM side.
+Analytic LM scoping (``run_lm``) walks the catalog from 64 chips up, so it waits for
+the port's ``distributed/``; one chip's analytic rows come from
+``launch.dryrun`` and ``ContainerStress.run_analytic``.
 """
 
 from __future__ import annotations
@@ -127,7 +129,10 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not args.mset:
-        ap.error("pick --mset (analytic LM scoping is not ported yet)")
+        ap.error(
+            "pick --mset (analytic LM scoping over the catalog waits for the port's "
+            "distributed/, ROADMAP item 9)"
+        )
     run_mset(args.grid, args.reps, args.out, device=args.device)
 
 

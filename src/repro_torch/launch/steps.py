@@ -1,12 +1,15 @@
-"""Step builders shared by the trainer and the server: the JAX package's
+"""Step builders shared by the trainer, the server and the dry-run: the JAX package's
 ``launch/steps.py`` on one device.
 
 The reference's ``StepBuilder`` holds no state: it builds jitted functions of
 (params, opt_state, batch). Here the builder owns what those functions act on, a
 model for training (float32 parameters, cast at use) and its AdamW state, and
-``train_step`` updates both in place, as the reference's donated buffers are.
-``abstract_params``, the sharding helpers and ``jit_grad_step`` (the dry-run's cost
-probe) wait for the port's ``distributed/``.
+``train_step`` updates both in place, as the reference's donated buffers are. On
+``device="meta"`` it draws no weights, and the dry-run counts its steps there
+(``core.hlo_analysis.analyze``): ``grad_step`` is the body of the reference's
+``jit_grad_step``, and ``abstract_params``, ``abstract_opt_state`` and
+``cache_abstract`` give the reference's abstract trees as meta tensors. The sharding
+helpers and the ``jit_*`` forms' shardings wait for the port's ``distributed/``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import _tree
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models.layers import _run
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, adamw
@@ -47,9 +51,35 @@ class StepBuilder:
         )
 
     def reset(self, seed: int):
-        """Fresh weights drawn from ``seed`` and a fresh AdamW state."""
-        self.model.init_weights(torch.Generator(self.model.device).manual_seed(seed))
+        """Fresh weights drawn from ``seed`` and a fresh AdamW state. A model on the
+        meta device has no data to draw."""
+        if self.model.device.type != "meta":
+            self.model.init_weights(torch.Generator(self.model.device).manual_seed(seed))
         self.opt_state = adamw.init(self.params)
+
+    # -------------------------- abstract trees ---------------------------
+    def abstract_params(self, dtype=None) -> dict:
+        """The reference's parameter tree as meta tensors, float32 or ``dtype``."""
+        tree = self.model.abstract_params()
+        if dtype is None:
+            return tree
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        return _tree.map(lambda t: torch.empty(t.shape, dtype=dtype, device="meta"), tree)
+
+    def abstract_opt_state(self, params_abs) -> adamw.AdamWState:
+        """AdamW's state for ``params_abs`` (meta tensors): int32 step, float32 moments."""
+        return adamw.init(params_abs)
+
+    def cache_abstract(self, shape: ShapeSpec) -> tuple:
+        """The decode cache of ``shape`` (global_batch sequences of seq_len) as meta
+        tensors in the reference's tree (``Model.cache_specs``)."""
+        return tuple(
+            {
+                kind: {n: torch.empty(dims, dtype=dt, device="meta") for n, (dims, dt) in e.items()}
+                for kind, e in entry.items()
+            }
+            for entry in self.model.cache_specs(shape.global_batch, shape.seq_len)
+        )
 
     # -------------------------- step functions --------------------------
     def train_step(self, batch: dict, step=_run) -> dict:
@@ -67,6 +97,16 @@ class StepBuilder:
         for p in self.params.values():
             p.grad = None
         return dict(metrics, loss=loss, **om)
+
+    def grad_step(self, params: dict, batch: dict):
+        """The body of the reference's ``jit_grad_step``, the dry-run's cost probe: the
+        loss on ``batch`` and the gradients of ``params`` (the model's parameters,
+        ``self.params``), in one pass with no microbatching and no optimizer. Returns
+        (grads, loss); the gradients are the parameters' ``.grad``."""
+        (loss, _), grads = microbatched_value_and_grad(lambda p, b: self.model.loss(b), 1)(
+            params, batch
+        )
+        return grads, loss
 
     def prefill(self, tokens, cache=None, **source):
         return self.model.prefill(tokens, cache, **source)

@@ -171,6 +171,12 @@ class Model(nn.Module):
 
         return self._tree(lambda t: torch.empty(t.shape, device="meta"), stack)
 
+    def abstract_params(self) -> dict:
+        """The reference's ``abstract_params``: its parameter tree of float32 meta
+        tensors, for the dry-run (the logical axes of its boxes come with the port's
+        ``distributed/``)."""
+        return self.tree_like()
+
     def load_numpy(self, params: dict, into: dict | None = None) -> "Model":
         """Copy the reference tree ``params`` (numpy or anything ``np.asarray`` takes)
         into the parameters, or into ``into[name]`` for each parameter name."""

@@ -626,3 +626,52 @@ def test_train_job_on_the_card_recovers_and_resumes(cuda, tmp_path):
     job2 = TrainJob(steps=18, **kw)
     train(job2, verbose=False)
     assert job2.history[0]["step"] == 15
+
+
+def test_service_on_the_card_is_no_faster_than_its_analytic_compute_bound(cuda):
+    """The MSET service's estimate at (1024 signals, 4096 memory vectors, 8192
+    observations): K1 launched once a call, finite residuals, equal to its plain version
+    on the same inputs (K within 5e-6 of similarity_ref; Xhat and the residuals within
+    8 sqrt(m) eps32 of their largest magnitude, the rounding walk of the sums of m terms
+    that follow K), and its time (CUDA events) at least 0.95 x the analytic probe's
+    t_compute at the card's peak."""
+    from functools import partial
+
+    from repro_torch._device import f32_matmul_highest
+    from repro_torch.core import H100, analyze, roofline
+    from repro_torch.kernels import similarity, similarity_ref
+    from repro_torch.mset import service
+
+    f32_matmul_highest()
+    n, m, b = 1024, 4096, 8192
+    gamma, kind = float(n) ** 0.5, "inverse_distance"
+    fn = partial(service._estimate_sharded, gamma=gamma, kind=kind)
+    cost = analyze(fn, *service.abstract_service_inputs(n, m, b).values())
+    t_compute = roofline(cost.flops, cost.bytes_accessed, 0.0, 1, H100).t_compute
+    g = torch.Generator(device=cuda).manual_seed(0)
+    D = torch.randn(m, n, generator=g, device=cuda)
+    Ginv = torch.randn(m, m, generator=g, device=cuda) / m
+    mean = torch.randn(n, generator=g, device=cuda)
+    std = 0.5 + torch.rand(n, generator=g, device=cuda)
+    X = mean + std * torch.randn(b, n, generator=g, device=cuda)
+    sim_module.launches = 0
+    Xhat, resid = fn(D, Ginv, mean, std, X)
+    assert sim_module.launches == 1
+    assert Xhat.shape == resid.shape == (b, n) and bool(torch.isfinite(resid).all())
+    Xs = (X - mean) / std
+    K, K_ref = similarity(D, Xs, gamma=gamma, kind=kind), similarity_ref(D, Xs, gamma, kind)
+    torch.testing.assert_close(K, K_ref, atol=5e-6, rtol=5e-6)
+    Xhat_ref = (Ginv @ K_ref).T @ D * std + mean
+    bar = 8 * m**0.5 * float(np.finfo(np.float32).eps)
+    for out, ref in ((Xhat, Xhat_ref), (resid, X - Xhat_ref)):
+        assert float((out - ref).abs().max()) <= bar * float(ref.abs().max())
+    for _ in range(2):
+        fn(D, Ginv, mean, std, X)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        fn(D, Ginv, mean, std, X)
+    end.record()
+    end.synchronize()
+    seconds = start.elapsed_time(end) / 5 / 1e3
+    assert seconds >= 0.95 * t_compute, (seconds, t_compute)
