@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in the order they run (numbered in the order they were added: 14, 15, 16 and
-17 run after 9); any failure exits non-zero:
+Phases, in the order they run (numbered in the order they were added: 14, 15, 16, 17
+and 18 run after 9); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
@@ -92,6 +92,17 @@ Phases, in the order they run (numbered in the order they were added: 14, 15, 16
     SWEEP_WORKERS processes, with its wall time, t_step, dominant term, peak and
     whether ``recommend`` finds h100-1 feasible (minitron-4b's train_4k may not); then
     one JSON line of it;
+18. sharding (``distributed/sharding.py``, DTensor): minitron-4b at full width served
+    at phase 8's shape (8 greedy tokens) through ``Model.shard`` on a (1, 1) mesh of a
+    process group of one, its tokens equal to the unsharded path's, its prefill logits
+    within 4 bf16 ulps, K2 launched on the local shards, its prefill and decode step
+    timed beside the unsharded; ``make_service`` on that mesh at the full-width service
+    size (K1 on local shards: K against ``similarity_ref`` at 5e-6, Xhat and residuals
+    against the unsharded service at phase 17's bar), timed beside it; then, on meta
+    tensors in a fake world of 256 ranks, the dry-run's minitron-4b, olmoe-1b-7b (expert
+    parallel) and mamba2-130m train_4k cells on pod16x16 and ``run_lm("minitron-4b",
+    "train_4k")`` over v5e-64 ... 2x-v5e-256 with its recommendation; then one JSON
+    line of it;
 10. the fleet simulator's compiled backend (``backend="torch"``, its bin loop a CUDA
     graph) against the numpy engine: window-sum order; the golden scenarios of
     tests/test_jax_backend.py at its bar and the substep grid bit for bit; every policy
@@ -220,6 +231,17 @@ DENSE_TRAIN = dict(
 SERVICE_SIZES = ((64, 512, 4096), (1024, 4096, 8192), (4096, 8192, 16384))
 SERVICE_ITERS = 10
 SWEEP_WORKERS = 8
+# Phase 18: phase 8's serving shape with a few greedy steps on a one-card mesh; phase
+# 17's full-width service size; the dry-run's cells on pod16x16 (256 chips) and the
+# analytic LM scoping of minitron-4b across the catalog from 64 chips.
+SHARDED_SERVE = dict(batch=4, prompt_len=2048, gen_tokens=8)
+SHARDED_SERVICE = SERVICE_SIZES[1]
+SHARDED_CELLS = (
+    ("minitron-4b", "train_4k"),
+    ("olmoe-1b-7b", "train_4k"),
+    ("mamba2-130m", "train_4k"),
+)
+SHARDED_SCOPE = ("minitron-4b", "train_4k")
 # The fleet phase's tuning rounds: benchmarks/tune_controller.py's flash-crowd
 # predictive-tuning scenario, raced as (candidates, seeds, seconds at dt 5 s, tile).
 # 24 x 12 x 720 bins is benchmarks/sim_perf.py's headline; 512 at tile 512 is the
@@ -1790,6 +1812,196 @@ def analytic_phase(dev, card, sim_module, serving, families, encdec, training):
     return rec
 
 
+def timed_generate(model, prompts, gen_tokens):
+    """(greedy tokens, prefill's last-token logits, prefill seconds, seconds a decode
+    step) of one prefill and gen_tokens - 1 greedy steps, each part ended by a
+    synchronize."""
+    from repro_torch.launch.serve import decode_greedy
+
+    B, P = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(prompts, model.init_cache(B, P + gen_tokens))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = decode_greedy(model, cache, logits, P, gen_tokens)
+    torch.cuda.synchronize()
+    t_step = (time.perf_counter() - t0) / (gen_tokens - 1)
+    full = getattr(logits, "full_tensor", lambda: logits)
+    return toks, full(), t_prefill, t_step
+
+
+def sharded_phase(dev, card, flash_module, sim_module):
+    """Phase 18: sharding on a one-card mesh, then analytic scoping across the catalog.
+    (1) minitron-4b at full width served at phase 8's shape through
+    ``Model.shard(make_rules(make_dev_mesh()))`` (a (1, 1) mesh on a process group of
+    one): its greedy tokens equal to the unsharded path's, its prefill logits within 4
+    bf16 ulps of the largest, K2 launched on the local shards (counted from 0 around
+    the timed call), prefill and decode step timed beside the unsharded ones. (2) the
+    MSET service through ``make_service`` on that mesh at phase 17's full-width size: K
+    (``sharded_similarity``, K1 on the local shards) against ``similarity_ref`` at 5e-6,
+    Xhat and residuals against the unsharded service within phase 17's bar, K1 launched,
+    timed beside it. (3) with the process group gone, the dry-run's SHARDED_CELLS on
+    pod16x16 (meta tensors in a fake world of 256 ranks, on the host) and
+    ``run_lm(*SHARDED_SCOPE)`` over v5e-64 ... 2x-v5e-256 with its recommendation.
+    Returns the phase's record."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_rules, place
+    from repro_torch.kernels import similarity_ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.scope import run_lm
+    from repro_torch.models import build_model
+    from repro_torch.mset import MSETModel
+    from repro_torch.mset.service import _estimate_sharded, make_service, sharded_similarity
+
+    print(f"== 18. sharding: a one-card mesh, then the catalog's meshes ({card})")
+    t_phase = time.perf_counter()
+    rec = {}
+    started = not dist.is_initialized()
+    mesh = make_dev_mesh(device_type="cuda")
+    expect(tuple(mesh.shape) == (1, 1), f"the one-card mesh is {tuple(mesh.shape)}")
+    rules = make_rules(mesh)
+
+    cfg = get_config(SERVE_ARCH)
+    B, P, gen = SHARDED_SERVE["batch"], SHARDED_SERVE["prompt_len"], SHARDED_SERVE["gen_tokens"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev, g)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
+    timed_generate(model, prompts, gen)  # warm-up
+    toks0, logits0, pre0, step0 = timed_generate(model, prompts, gen)
+    model.shard(rules)
+    expect(all(hasattr(p, "placements") for p in model.parameters()), "a parameter is not placed")
+    timed_generate(model, prompts, gen)  # warm-up: DTensor's sharding propagation
+    flash_module.launches = 0
+    toks, logits, pre, step = timed_generate(model, prompts, gen)
+    k2 = flash_module.launches
+    toks = getattr(toks, "full_tensor", lambda: toks)()
+    ulp = 2.0**-8 * float(logits0.float().abs().max())
+    err = float((logits.float() - logits0.float()).abs().max())
+    same = bool((toks == toks0).all())
+    print(
+        f"  {cfg.name} at full width, {B} x {P} tokens, {gen} greedy tokens, on the (1, 1) "
+        f"mesh: prefill {pre:.4f} s (unsharded {pre0:.4f} s), decode step {step * 1e3:.2f} ms "
+        f"(unsharded {step0 * 1e3:.2f} ms)"
+    )
+    print(
+        f"  prefill logits max_abs_err {err:.3e} (bar 4 bf16 ulps of the largest, {4 * ulp:.3e}); "
+        f"the same greedy tokens: {same}; K2 launches on the local shards: {k2}"
+    )
+    expect(same, "the sharded path's greedy tokens differ from the unsharded path's")
+    expect(err <= 4 * ulp, f"sharded prefill logits off by {err}")
+    expect(k2 > 0, "the sharded serving path never launched K2")
+    expect(k2 == cfg.n_layers, f"expected {cfg.n_layers} K2 launches a sharded call, got {k2}")
+    rec.update(
+        serve=dict(
+            prefill_s=pre,
+            prefill_unsharded_s=pre0,
+            step_s=step,
+            step_unsharded_s=step0,
+            logits_max_abs_err=err,
+            same_tokens=same,
+        ),
+        k2_launches=k2,
+    )
+    del model, logits, logits0, prompts
+    torch.cuda.empty_cache()
+
+    n, m, b = SHARDED_SERVICE
+    g = torch.Generator(device=dev).manual_seed(n + m + b)
+    D = torch.randn(m, n, generator=g, device=dev)
+    Ginv = torch.randn(m, m, generator=g, device=dev) / m
+    mean = torch.randn(n, generator=g, device=dev)
+    std = 0.5 + torch.rand(n, generator=g, device=dev)
+    X = mean + std * torch.randn(b, n, generator=g, device=dev)
+    gamma, kind = float(n) ** 0.5, "inverse_distance"
+    est = make_service(MSETModel(D, Ginv, gamma, kind, mean, std), mesh)
+    est(X)  # warm-up
+    sim_module.launches = 0
+    Xhat, resid = est(X)
+    torch.cuda.synchronize()
+    k1 = sim_module.launches
+    Xhat, resid = Xhat.full_tensor(), resid.full_tensor()
+    Xhat0, resid0 = _estimate_sharded(D, Ginv, mean, std, X, gamma=gamma, kind=kind)
+    Xs = (X - mean) / std
+    rows = (mesh, est.inputs["D"].placements)
+    K = sharded_similarity(est.inputs["D"], place(Xs, rows), gamma, kind).full_tensor()
+    k_err, k_ok = compare(K, similarity_ref(D, Xs, gamma, kind), TOL, TOL)
+    del K
+    x_err, r_err = float((Xhat - Xhat0).abs().max()), float((resid - resid0).abs().max())
+    x_bar = 8 * m**0.5 * EPS32 * float(Xhat0.abs().max())
+    r_bar = 8 * m**0.5 * EPS32 * float(resid0.abs().max())
+    ms = cuda_ms(lambda: est(X), SERVICE_ITERS)
+    unsharded = partial(_estimate_sharded, gamma=gamma, kind=kind)
+    ms0 = cuda_ms(lambda: unsharded(D, Ginv, mean, std, X), SERVICE_ITERS)
+    print(
+        f"  make_service ({n}, {m}, {b}) on the mesh: K max_abs_err {k_err:.3e} (bar {TOL:g}), "
+        f"Xhat {x_err:.3e} (bar {x_bar:.3e}), residuals {r_err:.3e} (bar {r_bar:.3e}) against "
+        f"the unsharded service; K1 launches {k1}; {ms:.3f} ms a call (unsharded {ms0:.3f} ms)"
+    )
+    expect(k_ok, f"the sharded service's K disagrees with similarity_ref: {k_err}")
+    expect(x_err <= x_bar and r_err <= r_bar, "the sharded service disagrees with the unsharded")
+    expect(k1 > 0, "the sharded service never launched K1")
+    rec["service"] = dict(
+        size=SHARDED_SERVICE,
+        ms=ms,
+        unsharded_ms=ms0,
+        k_max_abs_err=k_err,
+        xhat_max_abs_err=x_err,
+        resid_max_abs_err=r_err,
+    )
+    rec["k1_launches"], rec["k1_max_abs_err"] = k1, k_err
+    del D, Ginv, X, Xs, Xhat, resid, Xhat0, resid0, est
+    torch.cuda.empty_cache()
+    if started:
+        dist.destroy_process_group()
+
+    cells = {}
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape in SHARDED_CELLS:
+            t0 = time.perf_counter()
+            r = dryrun.run_cell(arch, shape, mesh_name="pod16x16", out_dir=out, verbose=False)
+            secs = time.perf_counter() - t0
+            expect(r["status"] == "ok", f"{arch} x {shape} on pod16x16: {r}")
+            kinds = {k: float(v) for k, v in r["collective_bytes_by_kind"].items()}
+            print(
+                f"  {arch} x {shape} x pod16x16 (analytic, v5e's cost model): flops "
+                f"{r['flops']:.4e}, collective bytes {r['collective_bytes']:.4e} {kinds}, "
+                f"{r['peak_memory_per_device'] / 2**30:.2f} GiB a device, t_step "
+                f"{r['t_step'] * 1e3:.2f} ms ({r['dominant']}); counted in {secs:.1f} s"
+            )
+            cells[f"{arch} x {shape}"] = dict(
+                flops=r["flops"],
+                collective_bytes=r["collective_bytes"],
+                collective_bytes_by_kind=kinds,
+                peak_gib=r["peak_memory_per_device"] / 2**30,
+                t_step=r["t_step"],
+                dominant=r["dominant"],
+                seconds=secs,
+            )
+    a2a = cells["olmoe-1b-7b x train_4k"]["collective_bytes_by_kind"].get("all-to-all", 0)
+    expect(a2a > 0, "olmoe's expert-parallel cell counted no all-to-all")
+    t0 = time.perf_counter()
+    scoped = run_lm(*SHARDED_SCOPE)
+    expect(scoped is not None, f"run_lm{SHARDED_SCOPE} did not apply")
+    rows, best = scoped
+    expect(len(rows) == 4, f"run_lm scoped {len(rows)} shapes, expected v5e-64 ... 2x-v5e-256")
+    rec["cells"] = cells
+    rec["scope"] = dict(
+        rows={r.shape_name: r.terms.t_step for r in rows},
+        recommendation=best.shape.name if best.shape else None,
+        seconds=time.perf_counter() - t0,
+    )
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the sharding phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def checked(label, fn, *args):
     """Run one of the shared CPU-test checks (tests/torch_fleet_cases.py) on the card;
     a failed assertion in it fails the smoke run."""
@@ -2793,6 +3005,10 @@ def main():
     analytic = analytic_phase(dev, card, sim_module, serving, families, encdec, training)
     print(json.dumps({"analytic": analytic}))
 
+    # ----------------------------------------------------------- 18. sharding
+    sharded = sharded_phase(dev, card, flash_module, sim_module)
+    print(json.dumps({"sharded": sharded}))
+
     # ------------------------------------------------------------ 10. fleet
     fleet = fleet_phase(dev, card)
     print(json.dumps({"fleet": fleet}))
@@ -2818,6 +3034,8 @@ def main():
             "control_launches": control["controller"]["launches"]["similarity"],
             "analytic_launches": analytic["service_k1_launches"],
             "analytic_max_abs_err": analytic["service_k1_max_abs_err"],
+            "sharded_launches": sharded["k1_launches"],
+            "sharded_max_abs_err": sharded["k1_max_abs_err"],
             "max_abs_err": max_abs_err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -2849,6 +3067,7 @@ def main():
             "encdec": dict(encdec["k2"], launches=encdec[ENCDEC_ARCH]["k2_launches"]),
             "prefill_32k": flash_timings["prefill_32k"],
             "training_launches": training["k2_launches"],
+            "sharded_launches": sharded["k2_launches"],
             "serve_f32": flash_timings["serve_f32"],
         },
         {

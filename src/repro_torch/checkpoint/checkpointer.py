@@ -9,8 +9,8 @@ the other.
 * Async: ``save_async`` copies the tree to the host, then writes on a worker thread.
 * Keep-N GC + latest-step resume + corrupted-checkpoint fallback.
 
-Restoring with mesh shardings (the reference's elastic restart) waits for the port's
-``distributed/``.
+Restoring with mesh shardings (the reference's elastic restart) is not ported yet: it
+needs a process per device (ROADMAP item 10).
 """
 
 from __future__ import annotations

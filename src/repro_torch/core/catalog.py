@@ -2,8 +2,10 @@
 single-node H100 GPU shapes).
 
 The v5e entries are kept so the recommender answers as the JAX package does on
-the same rows. ``run_analytic`` and the dry-run count one chip; a device mesh for a
-shape of more chips (``CloudShape.make_mesh``) comes with the port's ``distributed/``.
+the same rows. ``CloudShape.make_mesh`` builds a shape's ``DeviceMesh``; a shape of
+more than one chip needs a process group of that many ranks (under ``torchrun``, or
+``launch.mesh.fake_world`` for an analytic count on meta tensors). Shapes of several
+GPU nodes are not in the catalog: the reference has none.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ class CloudShape:
     @property
     def price_per_hour(self) -> float:
         return self.chips * self.hw.price_per_chip_hour
+
+    def make_mesh(self, device_type: str = "cuda"):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh(device_type, self.mesh_shape, mesh_dim_names=self.axes)
 
 
 CATALOG: list[CloudShape] = [

@@ -21,8 +21,14 @@ raises, and so does an op on a tensor with elements off the meta device: a count
 guesses.
 A Python loop is counted once a pass, so no probe needs unrolling.
 
-``parse_collectives`` and its regexes are the reference's, pure Python, for HLO text;
-at one chip the port runs no collective and ``collectives`` stays empty.
+A sharded step (DTensors on a mesh, in a ``launch.mesh.fake_world`` of n ranks) is
+counted per device, as the reference's SPMD executable is: the mode passes each
+DTensor-level op on (``NotImplemented``) and counts the local ops it runs on this rank's
+shards, skipping the ``FakeTensor`` ops of DTensor's sharding propagation. Each
+``_c10d_functional`` collective is counted into ``CollectiveStats`` under XLA's kind
+name by the reference's byte rule (``parse_collectives``: the per-device bytes of the
+op's result shape); ``wait_tensor`` moves nothing. ``parse_collectives`` and its
+regexes are the reference's, pure Python, for HLO text.
 """
 
 from __future__ import annotations
@@ -30,10 +36,13 @@ from __future__ import annotations
 import functools
 import math
 import re
+import sys
 import weakref
 from dataclasses import dataclass, field
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -160,13 +169,26 @@ _COPIES = {"_to_copy", "copy_", "clone"}
 _WRITE_ONLY = {"copy_", "fill_", "zero_"}
 # Allocations: they move nothing.
 _ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
+# c10d's functional collectives by XLA's kind names; wait_tensor moves nothing.
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
 
 
 def _tensors(tree, out=None) -> list:
-    """The tensors in ``tree`` (nested tuples, lists and dicts), in order."""
+    """The tensors in ``tree`` (nested tuples, lists and dicts), in order; a DTensor's
+    local shard in its place."""
     out = [] if out is None else out
     for x in tree.values() if isinstance(tree, dict) else tree:
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, DTensor):
+            out.append(x._local_tensor)
+        elif isinstance(x, torch.Tensor):
             out.append(x)
         elif isinstance(x, (tuple, list, dict)):
             _tensors(x, out)
@@ -199,18 +221,34 @@ class _Counter(TorchDispatchMode):
         self.high_water = 0
         self._known = set(known_storages)  # ids of storages that exist before the run
         self._new = {}  # id -> nbytes of storages made during the run and still alive
+        self.collectives = CollectiveStats()
 
     def _freed(self, key, nbytes):
         if self._new.pop(key, None) is not None:
             self.live -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # counted as the local ops it runs
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types) or any(
+            isinstance(t, FakeTensor) for t in _tensors((out,))
+        ):
+            return out  # DTensor's sharding propagation, not the step
+        collective = func.namespace.startswith("_c10d_functional")
+        kind = _COLLECTIVES.get(func._schema.name.split("::")[-1])
+        if func.namespace == "_c10d_functional" and kind is not None:
+            stats = self.collectives
+            nbytes = sum(_nbytes(t) for t in _tensors((out,)))
+            stats.bytes_by_kind[kind] = stats.bytes_by_kind.get(kind, 0) + nbytes
+            stats.count_by_kind[kind] = stats.count_by_kind.get(kind, 0) + 1
         ins = _tensors(kwargs, _tensors(args))
         outs = _tensors((out,))
         for t in ins + outs:  # an empty tensor (checkpoint's CPU marker) holds nothing
             if t.device.type != "meta" and t.numel():
+                if _in_dtensor_internals():  # index arithmetic of its sharding propagation
+                    return out
                 raise ValueError(
                     f"analyze counts meta tensors only: {func} has a tensor on {t.device}"
                 )
@@ -226,6 +264,8 @@ class _Counter(TorchDispatchMode):
             self.live += nbytes
             fresh = True
         self.high_water = max(self.high_water, self.live)
+        if collective:  # traffic between devices, counted above
+            return out
         name, kind = _rule(func)
         if kind == "none" or (kind == "alias" and not fresh):
             return out
@@ -247,6 +287,17 @@ class _Counter(TorchDispatchMode):
         elif kind == "pointwise":
             self.flops += n_out
         return out
+
+
+def _in_dtensor_internals() -> bool:
+    """Whether the op was called from DTensor's own modules (its sharding propagation
+    computes on small host tensors), not from the step."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_globals.get("__name__", "").startswith("torch.distributed.tensor."):
+            return True
+        frame = frame.f_back
+    return False
 
 
 @functools.cache
@@ -300,8 +351,8 @@ def analyze(fn, *args, n_devices: int = 1) -> CompiledCost:
         n_devices=n_devices,
         flops=counter.flops * n_devices,
         bytes_accessed=counter.bytes * n_devices,
-        collective_bytes=0.0,
-        collectives=CollectiveStats(),
+        collective_bytes=float(counter.collectives.total_bytes) * n_devices,
+        collectives=counter.collectives,
         peak_memory_per_device=float(arg_bytes + temp + out_bytes),
         argument_bytes_per_device=float(arg_bytes),
         temp_bytes_per_device=float(temp),

@@ -11,12 +11,15 @@ Two cost probes:
   own methodology (it timed CPU/GPU containers).
 * ``run_analytic`` — the workload's step run once on meta tensors and counted op by
   op (``hlo_analysis.analyze``), then the three-term roofline cost for a catalog
-  CloudShape (no hardware needed). One chip so far: shapes of more chips wait for
-  the port's ``distributed/``.
+  CloudShape (no hardware needed). A shape of many chips is counted per device in a
+  ``fake_world`` of that many ranks, where ``lower_fn`` builds its step on the shape's
+  mesh (``CloudShape.make_mesh("cpu")``): this is what lets one dev box scope 512-chip
+  configurations.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from dataclasses import dataclass, field
@@ -24,6 +27,7 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import sync
 from repro_torch.core.catalog import CloudShape
@@ -147,25 +151,30 @@ class ContainerStress:
         verbose: bool = False,
     ) -> ScopingResult:
         """Count every grid cell on every shape: ``lower_fn(params, shape) -> (fn,
-        meta_args)``, the cell's step and its inputs as meta tensors, which
-        ``hlo_analysis.analyze`` runs once. A cell that ``lower_fn`` finds infeasible
-        by construction (it raises ValueError) is skipped; any other error propagates.
-        Each shape must be one chip."""
-        many = [s.name for s in shapes if s.chips != 1]
-        if many:
-            raise ValueError(f"analytic scoping of {many} waits for the port's distributed/")
+        meta_args)``, the cell's step and its inputs as meta tensors (DTensors on the
+        shape's mesh for a shape of many chips), which ``hlo_analysis.analyze`` runs
+        once and counts per device. A shape of more than one chip runs in a
+        ``fake_world`` of its chips unless a process group is running. A cell that
+        ``lower_fn`` finds infeasible by construction (it raises ValueError) is
+        skipped; any other error propagates."""
+        from repro_torch.launch.mesh import fake_world
+
         res = ScopingResult()
         for params in _grid(grid):
             if constraint and not constraint(params):
                 continue
             for shape in shapes:
-                try:
-                    fn, args = lower_fn(params, shape)
-                except ValueError as e:
-                    if verbose:
-                        print(f"[containerstress] {shape.name} {params} infeasible: {e}")
-                    continue
-                cost = analyze(fn, *args)
+                world = contextlib.nullcontext()
+                if shape.chips > 1 and not dist.is_initialized():
+                    world = fake_world(shape.chips)
+                with world:
+                    try:
+                        fn, args = lower_fn(params, shape)
+                    except ValueError as e:
+                        if verbose:
+                            print(f"[containerstress] {shape.name} {params} infeasible: {e}")
+                        continue
+                    cost = analyze(fn, *args, n_devices=shape.chips)
                 terms = roofline(
                     cost.flops, cost.bytes_accessed, cost.collective_bytes, shape.chips, self.hw
                 )

@@ -10,8 +10,8 @@
   port's ``tpss`` (whose draws come from a ``torch.Generator``; the reference's
   from ``jax.random``).
 
-Placing a batch with a mesh sharding (the reference's ``sharded_batch``) waits for
-the port's ``distributed/``.
+Placing a batch with a mesh sharding (the reference's ``sharded_batch``) is not ported
+yet: it needs a process per device (ROADMAP item 10).
 """
 
 from __future__ import annotations

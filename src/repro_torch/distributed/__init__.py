@@ -1,7 +1,23 @@
-"""The mesh-free part of the JAX package's ``distributed/``: int8 gradient
-compression and the training supervisor's fault handling. ``sharding.py`` (the
-logical-axis rules, on a device mesh) is not ported yet."""
+"""The JAX package's ``distributed/``: logical-axis sharding on a ``DeviceMesh``
+(``sharding.py``), int8 gradient compression and the training supervisor's fault
+handling."""
 
-from repro_torch.distributed import compression, fault
+from repro_torch.distributed.sharding import (
+    DEFAULT_RULES,
+    Box,
+    ShardingRules,
+    is_box,
+    make_rules,
+    unbox_axes,
+    unbox_values,
+)
 
-__all__ = ["compression", "fault"]
+__all__ = [
+    "Box",
+    "ShardingRules",
+    "DEFAULT_RULES",
+    "is_box",
+    "make_rules",
+    "unbox_axes",
+    "unbox_values",
+]

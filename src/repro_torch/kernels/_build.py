@@ -101,3 +101,15 @@ def load(source: Path) -> ctypes.CDLL:
     if source not in _LIBS:
         _LIBS[source] = ctypes.CDLL(str(build(source).library))
     return _LIBS[source]
+
+
+def refuse_dtensors(kernel: str, *tensors):
+    """Raise TypeError when a tensor is a DTensor: a kernel reads one device's memory,
+    so a sharded caller hands it local shards (``local_call``), never the whole."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{kernel} takes local tensors, got a DTensor: call it on the local shards "
+            "(distributed.sharding.local_call)"
+        )

@@ -77,6 +77,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     would carry none to them (training runs ``models.layers._sdpa_heads``).
     """
     global launches
+    _build.refuse_dtensors("flash_attention_cuda", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
             "flash_attention_cuda (K2) has no backward: its output would carry no gradient "

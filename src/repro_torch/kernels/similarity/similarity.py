@@ -48,6 +48,7 @@ def _kernel():
 def similarity_cuda(x, y, gamma: float = 1.0, kind: str = "inverse_distance"):
     """x: (m, n), y: (b, n) CUDA tensors, both float32 or both bfloat16 -> (m, b) f32."""
     global launches
+    _build.refuse_dtensors("similarity_cuda", x, y)
     if kind not in KINDS:
         raise ValueError(f"unknown similarity kind {kind!r}")
     if not (x.is_cuda and y.is_cuda and x.device == y.device):

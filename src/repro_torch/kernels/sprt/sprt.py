@@ -80,6 +80,7 @@ def sprt_cuda(
     device, gets pass 2's re-run steps added to [0] and [1] raised to the most re-run
     in one chunk of one signal."""
     global launches
+    _build.refuse_dtensors("sprt_cuda", residuals, sigma, mu)
     vecs = [v for v in (sigma, mu) if v is not None]
     tensors = [residuals, *vecs] + ([] if reruns is None else [reruns])
     if not all(v.is_cuda and v.device == residuals.device for v in tensors):

@@ -5,9 +5,12 @@ Measured MSET2 scoping (paper Figs. 4-5, wall-clock Monte Carlo):
     PYTHONPATH=src python -m repro_torch.launch.scope --mset --grid small
     PYTHONPATH=src python -m repro_torch.launch.scope --mset --grid small --device cpu
 
-Analytic LM scoping (``run_lm``) walks the catalog from 64 chips up, so it waits for
-the port's ``distributed/``; one chip's analytic rows come from
-``launch.dryrun`` and ``ContainerStress.run_analytic``.
+Analytic LM scoping across the catalog (``run_lm``): each shape from 64 chips up, its
+step counted per device on meta tensors in a ``fake_world`` of its chips
+(``launch.dryrun.probe_cost``), then roofline, dollars and a recommendation. The v5e
+rows are the reference's cost model applied to the port's count (analytic):
+
+    PYTHONPATH=src python -m repro_torch.launch.scope --lm minitron-4b --shape train_4k
 """
 
 from __future__ import annotations
@@ -120,20 +123,85 @@ def run_mset(grid, reps: int = 3, out: str = "", device=None, verbose: bool = Tr
     return res, surf
 
 
+def run_lm(arch: str, shape_name: str, out: str = "", n_microbatches: int = 8):
+    """Scope ``arch`` at ``shape_name`` across the catalog's shapes of 64 chips and up:
+    each shape's step counted per device on meta tensors (no card), its roofline at the
+    shape's hardware, the dollars of 1000 steps, and the cheapest shape whose step fits
+    60 s. A shape whose count fails is printed infeasible, as the reference's. Returns
+    (rows, recommendation), or None when the shape does not apply."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.core import CATALOG, CellResult, Constraint, dollar_cost, recommend, roofline
+    from repro_torch.launch.dryrun import probe_cost
+    from repro_torch.launch.mesh import fake_world
+
+    ok, why = shape_applicable(get_config(arch), SHAPES[shape_name])
+    if not ok:
+        print(f"skip: {why}")
+        return None
+    rows = []
+    for cshape in CATALOG:
+        if cshape.chips < 64:
+            continue  # big-model scoping starts at v5e-64
+        try:
+            with fake_world(cshape.chips):
+                mesh = cshape.make_mesh("cpu")
+                cost = probe_cost(arch, shape_name, mesh, n_microbatches=n_microbatches)
+        except Exception as e:
+            print(f"{cshape.name}: infeasible ({type(e).__name__}: {e})")
+            continue
+        terms = roofline(
+            cost.flops, cost.bytes_accessed, cost.collective_bytes, cshape.chips, cshape.hw
+        )
+        usd = dollar_cost(terms.t_step, 1000, cshape.chips, cshape.hw)
+        rows.append(
+            CellResult(
+                params={"shape": cshape.chips},
+                shape_name=cshape.name,
+                terms=terms,
+                analysis=cost.as_dict(),
+                usd_per_1k_steps=usd,
+            )
+        )
+        print(
+            f"{cshape.name:12s} t_step={terms.t_step * 1e3:9.2f}ms "
+            f"dom={terms.dominant:10s} ${usd:8.2f}/1k-steps (analytic)"
+        )
+    rec = recommend(rows, Constraint(max_step_latency_s=60.0))
+    print(f"\nrecommendation: {rec.shape.name if rec.shape else None} — {rec.reason}")
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            rows_out = [
+                {
+                    **r.params,
+                    "shape_name": r.shape_name,
+                    "t_step": r.terms.t_step,
+                    "usd": r.usd_per_1k_steps,
+                }
+                for r in rows
+            ]
+            json.dump(rows_out, f, indent=1)
+    return rows, rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mset", action="store_true")
     ap.add_argument("--grid", default="small", choices=sorted(GRIDS))
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--lm", help="an arch to scope analytically across the catalog")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument(
+        "--device", default=None, help="cuda (default) or cpu; --lm runs on meta tensors"
+    )
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    if not args.mset:
-        ap.error(
-            "pick --mset (analytic LM scoping over the catalog waits for the port's "
-            "distributed/, ROADMAP item 9)"
-        )
-    run_mset(args.grid, args.reps, args.out, device=args.device)
+    if args.mset:
+        run_mset(args.grid, args.reps, args.out, device=args.device)
+    elif args.lm:
+        run_lm(args.lm, args.shape, args.out)
+    else:
+        ap.error("pick --mset or --lm <arch>")
 
 
 if __name__ == "__main__":

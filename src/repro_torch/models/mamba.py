@@ -23,9 +23,22 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import _param, _run, dense_init_, rms_norm_nohead, working_dtype
+from repro_torch.distributed.sharding import local_call
+from repro_torch.models.layers import (
+    _param,
+    _run,
+    column_parallel,
+    constrain,
+    dense_init_,
+    rms_norm_nohead,
+    row_parallel,
+    sharded,
+    working_dtype,
+    write_all,
+)
 
 F32 = torch.float32
 
@@ -116,7 +129,32 @@ def ssd_chunked(cfg: ArchConfig, xh, dt, A, Bm, Cm, init_state=None):
     return y, s
 
 
-def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run):
+def _whole(t):
+    """A DTensor replicated on its mesh."""
+    return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
+
+
+def _ssd_sharded(cfg: ArchConfig, rules, xh, dt, dt_bias, A, Bm, Cm):
+    """softplus(dt + dt_bias) and ``ssd_chunked`` on a mesh through ``local_call``:
+    heads are independent, so each rank scans its own (``ssm_heads`` over ``model``
+    where H divides it), with B and C whole on every rank; no collective. (DTensor has
+    no sharding rule for softplus's backward, so it runs on the local shards too.)"""
+    xh = rules.constrain(xh, ("batch", "act_seq", "ssm_heads", None))
+    dt = rules.constrain(dt, ("batch", "act_seq", "ssm_heads"))
+    dt_bias = rules.constrain(dt_bias, ("ssm_heads",))
+    A = rules.constrain(A, ("ssm_heads",))
+    Bm = rules.constrain(Bm, ("batch", "act_seq", None, None))
+    Cm = rules.constrain(Cm, ("batch", "act_seq", None, None))
+    B_, _, H, Pd = xh.shape
+    state_pl = rules.placements_for(("batch", "ssm_heads", None, None), (B_, H, Bm.shape[3], Pd))
+
+    def scan(xh, dt, dt_bias, A, Bm, Cm):
+        return ssd_chunked(cfg, xh, F.softplus(dt + dt_bias[None, None]), A, Bm, Cm)
+
+    return local_call(scan, (xh.placements, state_pl), xh, dt, dt_bias, A, Bm, Cm)
+
+
+def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run, rules=None):
     """The full SSD block, as the reference's caller convention has it:
 
     * cache None             -> no cache (the training path's forward), (y, None);
@@ -125,44 +163,78 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run):
     * cache given, pos given -> one-token decode, the cache updated in place.
 
     ``cache`` = {"conv": (B, W - 1, cch) working dtype, "state": (B, H, N, P) f32}.
+    On a mesh (``rules``) the constraints sit where the reference's do, the scan runs
+    through ``_ssd_sharded`` and the cache entries are written placed as they are.
     """
     dt_m = x.dtype
     din, H, G, N = cfg.d_inner, cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state
     Pd, W = cfg.ssm_headdim, cfg.conv_width
     A = -torch.exp(p["A_log"])
 
-    zxbcdt = step("in_proj", lambda: x @ p["w_in"].to(dt_m))
+    if sharded(rules):
+        zxbcdt = step("in_proj", lambda: column_parallel(x, p["w_in"]))
+    else:
+        zxbcdt = step("in_proj", lambda: x @ p["w_in"].to(dt_m))
+    zxbcdt = constrain(rules, zxbcdt, ("batch", "act_seq", "act_mlp"))
+    if sharded(rules):
+        # (z | xbc | dt) gathered along model once: DTensor slices a sharded dim across
+        # its shards' boundaries only by gathering the whole, once for each slice
+        zxbcdt = constrain(rules, zxbcdt, ("batch", "act_seq", None))
+        # and the small per-channel weights whole: the gated norm's scale sharded along
+        # din would shard the heads' gradients where H does not divide the axis
+        p = dict(p, **{k: _whole(p[k]) for k in ("conv_w", "conv_b", "norm")})
     z, xbc, dtr = _split_proj(cfg, zxbcdt)
 
     if cache is not None and pos is not None:
         # ---- decode: the recurrent update; conv cache is a rolling window of
         # pre-activation inputs ----
         window = torch.cat([cache["conv"], xbc[:, :1, :]], dim=1)  # (B, W, cch)
-        conv = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
+        # on a mesh the three contractions are written elementwise: DTensor works out a
+        # product's placements far more slowly than a product's and a sum's
+        on_mesh = sharded(rules)
+        if on_mesh:
+            conv = (window.float() * p["conv_w"].float()).sum(1)
+        else:
+            conv = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
         conv = F.silu(conv + p["conv_b"].float())
         xh = conv[:, :din].reshape(-1, H, Pd)  # (B, H, P)
         Bh = conv[:, din : din + G * N].reshape(-1, G, N).repeat_interleave(H // G, dim=1)
         Ch = conv[:, din + G * N :].reshape(-1, G, N).repeat_interleave(H // G, dim=1)
         dtv = F.softplus(dtr[:, 0, :].float() + p["dt_bias"][None])  # (B, H)
         dA = torch.exp(dtv * A[None])
-        upd = torch.einsum("bhn,bhp->bhnp", Bh * dtv[..., None], xh)
+        if on_mesh:
+            upd = (Bh * dtv[..., None])[..., :, None] * xh[..., None, :]
+        else:
+            upd = torch.einsum("bhn,bhp->bhnp", Bh * dtv[..., None], xh)
         state = cache["state"] * dA[..., None, None] + upd
-        y = torch.einsum("bhn,bhnp->bhp", Ch, state)
+        y = (Ch[..., None] * state).sum(2) if on_mesh else torch.einsum("bhn,bhnp->bhp", Ch, state)
         y = y + p["D"].float()[None, :, None] * xh
         y = y.reshape(-1, 1, din).to(dt_m)
         y = rms_norm_nohead(y * F.silu(z.float()).to(dt_m), p["norm"])
-        cache["conv"].copy_(window[:, 1:, :])
-        cache["state"].copy_(state)
-        return y @ p["w_out"].to(dt_m), cache
+        write_all(cache["conv"], window[:, 1:, :])
+        write_all(cache["state"], state)
+        out = row_parallel(y, p["w_out"]) if on_mesh else y @ p["w_out"].to(dt_m)
+        return out, cache
 
     # ---- prefill / no cache: the chunked scan ----
-    xbc_c = step("conv", lambda: _causal_conv(cfg, p, xbc))
+    if sharded(rules):  # along the sequence, each rank on its batch shard's channels
+
+        def conv():
+            local = lambda x, w, b: _causal_conv(cfg, {"conv_w": w, "conv_b": b}, x)
+            return local_call(local, (xbc.placements,), xbc, p["conv_w"], p["conv_b"])
+
+        xbc_c = step("conv", conv)
+    else:
+        xbc_c = step("conv", lambda: _causal_conv(cfg, p, xbc))
     B_, S_ = xbc_c.shape[:2]
     xh = xbc_c[..., :din].reshape(B_, S_, H, Pd)
     Bm = xbc_c[..., din : din + G * N].reshape(B_, S_, G, N)
     Cm = xbc_c[..., din + G * N :].reshape(B_, S_, G, N)
+    xh = constrain(rules, xh, ("batch", "act_seq", "ssm_heads", None))
 
     def scan():
+        if sharded(rules):
+            return _ssd_sharded(cfg, rules, xh, dtr.float(), p["dt_bias"], A, Bm, Cm)
         dtv = F.softplus(dtr.float() + p["dt_bias"][None, None])
         return ssd_chunked(cfg, xh, dtv, A, Bm, Cm)
 
@@ -174,11 +246,21 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run):
         return rms_norm_nohead(yd * F.silu(z.float()).to(dt_m), p["norm"])
 
     yn = step("gate + norm", gate_norm)
-    out = step("out_proj", lambda: yn @ p["w_out"].to(dt_m))
+    if sharded(rules):
+        out = step("out_proj", lambda: row_parallel(yn, p["w_out"]))
+    else:
+        out = step("out_proj", lambda: yn @ p["w_out"].to(dt_m))
     if cache is not None:
-        cache["conv"].copy_(xbc[:, -(W - 1) :, :])
-        cache["state"].copy_(final_state)
+        write_all(cache["conv"], xbc[:, -(W - 1) :, :])
+        write_all(cache["state"], final_state)
     return out, cache
+
+
+# the logical axes of the decode cache's entries
+CACHE_AXES = {
+    "conv": ("cache_batch", None, "ssm_inner"),
+    "state": ("cache_batch", "ssm_heads", None, None),
+}
 
 
 def cache_spec(cfg: ArchConfig, batch: int):
@@ -194,6 +276,17 @@ class SSD(nn.Module):
     """``init_ssd``'s parameters: w_in (d, 2·din + 2·G·N + H) and w_out (din, d) in the
     working dtype; conv_w (W, cch), conv_b (cch,), A_log, D and dt_bias (H,) and
     norm (din,) in float32."""
+
+    AXES = {
+        "w_in": ("embed", "ssm_inner"),
+        "conv_w": ("conv", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "w_out": ("ssm_inner", "embed"),
+    }
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -228,5 +321,5 @@ class SSD(nn.Module):
             self.dt_bias.copy_(torch.log(torch.expm1(dt)))
             self.A_log.copy_(torch.log(a))
 
-    def forward(self, x, cache=None, pos=None, step=_run):
-        return apply_ssd(self.cfg, dict(self.named_parameters()), x, cache, pos, step)
+    def forward(self, x, cache=None, pos=None, step=_run, rules=None):
+        return apply_ssd(self.cfg, dict(self.named_parameters()), x, cache, pos, step, rules)

@@ -131,7 +131,9 @@ def test_each_knob_moves_the_count_by_its_hand_count(opt):
     causal_skip: 4 query chunks of 1024 in 4 buckets read 1, 2, 3 and 4 chunks of keys,
     so 6/16 of the two score products go (forward, and twice that backward), and the
     elementwise work on those scores with them. bf16_loss: the logits' float32 copy goes
-    (a bf16 read and a float32 write an element), and the loss reads bf16 logits."""
+    (a bf16 read and a float32 write an element), and the loss reads bf16 logits.
+    decode_tp_params and moe_dense act on a mesh only (a decode's rules, the MoE's
+    path): at one chip the count stands still."""
     cfg = get_config("minitron-4b", smoke=True)
     B, S = 2, 4096
     shape = ShapeSpec("t", "train", S, B)
@@ -143,6 +145,8 @@ def test_each_knob_moves_the_count_by_its_hand_count(opt):
         scores = 2 * 2.0 * B * cfg.n_heads * S * S * cfg.head_dim * cfg.n_layers
         assert base.flops - knob.flops >= 6 / 16 * 3 * scores
         assert knob.bytes_accessed < base.bytes_accessed
+    elif opt in ("decode_tp_params", "moe_dense"):
+        assert (knob.flops, knob.bytes_accessed) == (base.flops, base.bytes_accessed)
     else:
         assert base.bytes_accessed - knob.bytes_accessed >= B * S * cfg.vocab_size * (2 + 4)
 
@@ -284,8 +288,12 @@ def test_cli_writes_a_record_with_the_reference_keys(tmp_path):
 
 
 def test_cli_skips_what_the_reference_skips_and_refuses_many_chips(tmp_path):
+    """The skip record; the refusals that remain: no cell named, and expert parallelism
+    on the one-chip count, which has no mesh (the pod meshes take it)."""
     rec = dryrun.run_cell("minitron-4b", "long_500k", out_dir=str(tmp_path), verbose=False)
     assert rec["status"] == "skip" and set(rec) == {"arch", "shape", "mesh", "status", "reason"}
-    for flags in (["--multi-pod"], ["--both-meshes"], ["--no-probes"], ["--moe-impl", "ep"]):
+    for flags in ([], ["--moe-impl", "ep"], ["--mesh", "h100-1", "--moe-impl", "ep", "--all"]):
         with pytest.raises(SystemExit):
-            dryrun.main(["--all", *flags])
+            dryrun.main(flags)
+    with pytest.raises(ValueError, match="mesh"):
+        dryrun.run_cell("olmoe-1b-7b", "decode_32k", moe_impl="ep", out_dir=str(tmp_path))

@@ -675,3 +675,87 @@ def test_service_on_the_card_is_no_faster_than_its_analytic_compute_bound(cuda):
     end.synchronize()
     seconds = start.elapsed_time(end) / 5 / 1e3
     assert seconds >= 0.95 * t_compute, (seconds, t_compute)
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A (1, 1) mesh on the card, over a process group of one started here and torn
+    down after the test when none was running."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    started = not dist.is_initialized()
+    yield make_dev_mesh(device_type="cuda")
+    if started:
+        dist.destroy_process_group()
+
+
+def test_sharded_serving_on_a_one_card_mesh_gives_the_unsharded_tokens(cuda, card_mesh):
+    """minitron smoke on the card: greedy tokens through Model.shard on the (1, 1) mesh
+    equal the unsharded path's; K2 runs on the local shards, once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.serve import decode_greedy
+    from repro_torch.models import build_model
+
+    flash = importlib.import_module("repro_torch.kernels.attention.flash")
+    cfg = get_config("minitron-4b", smoke=True)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = build_model(cfg, cuda, g)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device=cuda)
+
+    def greedy():
+        cache, logits = model.prefill(prompts, model.init_cache(4, 72))
+        return decode_greedy(model, cache, logits, 64, 8)
+
+    want = greedy()
+    model.shard(make_rules(card_mesh))
+    flash.launches = 0
+    got = greedy().full_tensor()
+    assert flash.launches == cfg.n_layers
+    assert torch.equal(got, want)
+
+
+def test_sharded_service_on_a_one_card_mesh_launches_k1_on_local_shards(cuda, card_mesh):
+    from repro_torch.distributed.sharding import place
+    from repro_torch.kernels import similarity_ref
+    from repro_torch.mset import MSETModel
+    from repro_torch.mset.service import _estimate_sharded, make_service, sharded_similarity
+
+    n, m, b = 16, 128, 256
+    g = torch.Generator(device=cuda).manual_seed(1)
+    D = torch.randn(m, n, generator=g, device=cuda)
+    Ginv = torch.randn(m, m, generator=g, device=cuda) / m
+    mean, std = torch.randn(n, generator=g, device=cuda), 0.5 + torch.rand(n, device=cuda)
+    X = mean + std * torch.randn(b, n, generator=g, device=cuda)
+    est = make_service(MSETModel(D, Ginv, 4.0, "gaussian", mean, std), card_mesh)
+    sim_module.launches = 0
+    Xhat, resid = est(X)
+    assert sim_module.launches == 1
+    want_hat, want_res = _estimate_sharded(D, Ginv, mean, std, X, gamma=4.0, kind="gaussian")
+    bar = 8 * m**0.5 * float(np.finfo(np.float32).eps)
+    for out, ref in ((Xhat.full_tensor(), want_hat), (resid.full_tensor(), want_res)):
+        assert float((out - ref).abs().max()) <= bar * float(ref.abs().max())
+    Xs = (X - mean) / std
+    Dp = est.inputs["D"]
+    K = sharded_similarity(Dp, place(Xs, (card_mesh, Dp.placements)), 4.0, "gaussian")
+    K_ref = similarity_ref(D, Xs, 4.0, "gaussian")
+    torch.testing.assert_close(K.full_tensor(), K_ref, atol=5e-6, rtol=5e-6)
+
+
+def test_kernel_wrappers_refuse_a_dtensor_on_the_card(cuda, card_mesh):
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import place
+    from repro_torch.kernels import flash_attention_cuda, similarity_cuda, sprt_cuda
+
+    rep = (card_mesh, (Replicate(), Replicate()))
+    q = place(torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16), rep)
+    with pytest.raises(TypeError, match="local"):
+        flash_attention_cuda(q, q, q)
+    x = place(torch.zeros(8, 4, device=cuda), rep)
+    with pytest.raises(TypeError, match="local"):
+        similarity_cuda(x, x)
+    with pytest.raises(TypeError, match="local"):
+        sprt_cuda(x, x[0], None, 1.0, 2.0, -2.0)

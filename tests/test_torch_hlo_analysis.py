@@ -340,5 +340,7 @@ def test_run_analytic_skips_infeasible_cells_and_propagates_the_rest():
     with pytest.raises(RuntimeError):
         item = (lambda x: x.item(), (meta(1),))
         ContainerStress().run_analytic(lambda p, s: item, {"m": [1]}, [shape])
-    with pytest.raises(ValueError, match="distributed"):
-        ContainerStress().run_analytic(lower, {"m": [32]}, [get_shape("h100-2")])
+    # a shape of two chips is counted per device in a world of two, globalized
+    (row,) = ContainerStress().run_analytic(lower, {"m": [32]}, [get_shape("h100-2")]).rows
+    assert row.params == {"m": 32, "shape": 2}
+    assert row.analysis["flops"] == 2 * res.rows[0].analysis["flops"]
