@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases, in the order they run (numbered in the order they were added: 14, 15, 16, 17
-and 18 run after 9); any failure exits non-zero:
+and 18 run after 9, 19 and 20 after 12); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
 2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
@@ -125,12 +125,26 @@ and 18 run after 9); any failure exits non-zero:
     build on the card over benchmarks/oracle.py --full's grid against a numpy per-cell
     build of one column, its query latency and its verify_oracle bound; then one JSON
     line of it, with the dispatches by path;
-13. one JSON line describing each kernel;
+19. several processes under torchrun (``python -m torch.distributed.run``): the server
+    through ``-m repro_torch.launch.serve`` as a world of one on the card at phase 8's
+    shape, alone on the card and its host, its tokens equal to phase 8's, its prefill
+    seconds and tokens/s; then, beside phase 20, the elastic chain of mamba2-130m at full
+    width in float32, 4 x 128 tokens: a gloo world of four on the host runs the job to its
+    end, the card as a world of one resumes a copy of its step-2 checkpoint, a gloo world
+    of two resumes a copy of the card's step-4 checkpoint, each resumed loss within 1e-5
+    relative of the world of four's; each part's wall time; then one JSON line of it.
+    NCCL refuses two ranks on one card, so no world of several ranks runs on the card;
+20. every ``examples/torch_*.py`` as its own process on the card (this script's
+    ``--example`` mode), three at a time beside the chain, each exiting 0 with what its
+    ``main()`` returned and its kernels' launches printed, the quickstart's drift alarm
+    gated; then one JSON line of it. Their wall times are shared ones;
+13. one JSON line describing each kernel (with phase 20's launches);
 then the last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
 
+import glob
 import importlib
 import importlib.util
 import json
@@ -140,6 +154,7 @@ from functools import partial
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -300,6 +315,24 @@ ORACLE = dict(
     duration_s=1800.0, n_seeds=4, seed=7, candidates=14, init_seeds=2, verify_samples=5,
 )
 ORACLE_COLUMN = (1, 1)
+
+
+# Phase 19: several processes under torchrun (python -m torch.distributed.run). The
+# server through its launcher as a world of one on the card, at phase 8's shape and seed;
+# the elastic chain: mamba2-130m at full width in float32, 4 x 128 tokens, one job of
+# CHAIN["steps"] steps run to the end by a gloo world of four on the host, resumed on the
+# card (a world of one) from a copy of its step-2 checkpoint, and by a gloo world of two
+# from a copy of the card's step-4 checkpoint. NCCL refuses two ranks on one card.
+CHAIN = dict(arch="mamba2-130m", smoke=False, steps=5, seq_len=128, global_batch=4, ckpt_every=2)
+CHAIN_LINKS = (("cpu x 4", 4, "cpu", None), ("card x 1", 1, "cuda", 2), ("cpu x 2", 2, "cpu", 4))
+CHAIN_RTOL = 1e-5  # phase 16's bar for a loss, card against CPU
+WORLD_TIMEOUT = 420
+# Phase 20: every examples/torch_*.py as its own process on the card (this script's
+# --example mode); the arguments of those whose defaults would run for minutes.
+EXAMPLE_ARGS = {"torch_train_lm.py": ["--steps", "40"]}
+EXAMPLES_FIRST = ("torch_simulate_fleet.py", "torch_train_lm.py")
+EXAMPLE_TIMEOUT = 600
+EXAMPLE_WORKERS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -904,6 +937,7 @@ def serving_phases(dev, card, flash_module):
         prefill_s=[r.prefill_s for r in runs],
         decode_s=[r.decode_s for r in runs],
         peak_gib=peak / 2**30,
+        tokens=toks.tolist(),
     )
 
     # One prefill split by step, each step ended by a synchronize.
@@ -2345,17 +2379,19 @@ def example_phase(dev, card, counted):
     for module in counted.values():
         module.launches = 0
     t0 = time.perf_counter()
-    surf, rec_a, rec_b = example.main(dev)
+    fig = example.main(dev)
     seconds = time.perf_counter() - t0
     launches = {name: module.launches for name, module in counted.items()}
     print(f"  kernel launches during the example: {launches}; it took {seconds:.1f} s")
     expect(launches["similarity"] > 0, "the example never launched the similarity kernel")
-    expect(np.isfinite(surf.r2), "the example's response surface is not finite")
-    record = dict(card=card, seconds=seconds, surface_r2=surf.r2, launches=launches)
-    for label, rec in (("customer_a", rec_a), ("customer_b", rec_b)):
-        expect(rec.shape is not None, f"no shape for {label}")
-        record[label] = dict(shape=rec.shape.name, ranking=rec.ranking)
-        print(f"  {label}: {rec.shape.name} ({rec.reason}); r^2 of the surface {surf.r2:.4f}")
+    r2 = fig["surface_r2"]
+    expect(np.isfinite(r2), "the example's response surface is not finite")
+    record = dict(card=card, seconds=seconds, surface_r2=r2, launches=launches)
+    for label in ("customer_a", "customer_b"):
+        rec = fig[label]
+        expect(rec["shape"] is not None, f"no shape for {label}")
+        record[label] = dict(shape=rec["shape"], ranking=rec["ranking"])
+        print(f"  {label}: {rec['shape']} ({rec['reason']}); r^2 of the surface {r2:.4f}")
     return record
 
 
@@ -2682,6 +2718,193 @@ def control_phase(dev, card, counted):
     )
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  the autonomous-loop phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def subprocess_env(cpu=False):
+    """The environment of a process this script starts: the checkout's ``src`` on the
+    path; a CPU world sees no card, so that nothing in it can reach one."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    if cpu:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def world(n, args, cpu=False):
+    """A torchrun world of ``n`` ranks running ``args`` from the checkout's root (on the
+    host's CPU with ``cpu``); (stdout, wall seconds). A world that fails or outlasts
+    WORLD_TIMEOUT fails the script."""
+    from repro_torch.launch.mesh import torchrun
+
+    t0 = time.perf_counter()
+    p = torchrun(n, args, WORLD_TIMEOUT, cwd=ROOT, env=subprocess_env(cpu))
+    seconds = time.perf_counter() - t0
+    expect(
+        p.returncode == 0,
+        f"a world of {n} running {args[:2]} exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+        f"{p.stderr[-4000:]}",
+    )
+    return p.stdout, seconds
+
+
+def chain_rank(spec_path):
+    """One rank of phase 19's elastic chain, under torchrun: ``launch.train.train`` of
+    CHAIN's job in float32 on the spec's device, joining the world through the port's
+    ``init_world``; rank 0 writes the history and metrics."""
+    import torch.distributed as dist
+
+    import repro_torch.launch.train as train_mod
+    from repro_torch._device import f32_matmul_highest
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_world, is_main
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    init_world(spec["device"])
+    f32_matmul_highest()
+    train_mod.get_config = lambda arch, smoke=True: get_config(arch, smoke).replace(
+        dtype="float32"
+    )
+    job = train_mod.TrainJob(device=spec["device"], ckpt_dir=spec["ckpt_dir"], **CHAIN)
+    metrics = train_mod.train(job, verbose=False)
+    if is_main():
+        hist = [(h["step"], h["loss"], h["grad_norm"]) for h in job.history]
+        with open(spec["out"], "w") as f:
+            json.dump({"history": hist, "metrics": metrics}, f)
+    dist.destroy_process_group()
+
+
+def chain_link(i, work):
+    """Link ``i`` of CHAIN_LINKS as a torchrun world: from a copy of the last link's
+    checkpoint at its resume step (none for the first); (its history, wall seconds)."""
+    import shutil
+
+    label, n, device, resume = CHAIN_LINKS[i]
+    ckpt = os.path.join(work, f"chain{i}")
+    if resume is not None:
+        prev = os.path.join(work, f"chain{i - 1}")
+        for cfg_dir in os.listdir(prev):
+            name = f"step_{resume:010d}"
+            shutil.copytree(os.path.join(prev, cfg_dir, name), os.path.join(ckpt, cfg_dir, name))
+    spec = os.path.join(work, f"chain{i}.json")
+    hist_path = os.path.join(work, f"chain{i}.out.json")
+    with open(spec, "w") as f:
+        json.dump({"device": device, "ckpt_dir": ckpt, "out": hist_path}, f)
+    rank_args = [os.path.join(ROOT, "chip_smoke.py"), "--chain-rank", spec]
+    _, seconds = world(n, rank_args, cpu=device == "cpu")
+    with open(hist_path) as f:
+        return json.load(f), seconds
+
+
+def launcher_phase(card, serving, work):
+    """Phase 19, first part, alone on the card and its host: the server through its
+    launcher (``-m repro_torch.launch.serve``) as a torchrun world of one at phase 8's
+    shape and seed, its tokens equal to phase 8's. Returns its record."""
+    print(f"== 19. several processes under torchrun ({card}; the CPU worlds on its host)")
+    out = os.path.join(work, "serve.json")
+    args = ["-m", "repro_torch.launch.serve", "--arch", SERVE_ARCH, "--full"]
+    args += ["--batch", SERVE["batch"], "--prompt-len", SERVE["prompt_len"]]
+    args += ["--tokens", SERVE["gen_tokens"], "--out", out]
+    _, seconds = world(1, args)
+    with open(out) as f:
+        r = json.load(f)
+    same = r["tokens"] == serving["tokens"]
+    print(
+        f"  serve {SERVE_ARCH} --full through the launcher (a world of one, nothing else "
+        f"running): prefill {r['prefill_s']:.4f} s, {r['tokens_per_s']:.1f} tokens/s; "
+        f"tokens equal to phase 8's: {same}; {seconds:.1f} s of wall time"
+    )
+    expect(same, "the launcher's greedy tokens differ from phase 8's")
+    return dict(prefill_s=r["prefill_s"], tokens_per_s=r["tokens_per_s"], wall_s=seconds)
+
+
+def chain_phase(work):
+    """Phase 19, second part: the elastic chain of CHAIN_LINKS (beside phase 20's
+    examples), each resumed loss within CHAIN_RTOL of the uninterrupted world of four's
+    at the same step; each link's wall time. Returns the chain's records."""
+    t_chain = time.perf_counter()
+    links = [chain_link(i, work) for i in range(len(CHAIN_LINKS))]
+    recs = []
+    want = {s: loss for s, loss, _ in links[0][0]["history"]}
+    for (label, _, _, resume), (h, seconds) in zip(CHAIN_LINKS, links):
+        steps = [s for s, *_ in h["history"]]
+        expect(steps == list(range(resume or 0, CHAIN["steps"])), f"{label} ran steps {steps}")
+        rel = max(abs(loss - want[s]) / abs(want[s]) for s, loss, _ in h["history"])
+        print(
+            f"  {label}: steps {steps[0]}-{steps[-1]}"
+            + (f" resumed from step {resume}" if resume is not None else ", uninterrupted")
+            + f", losses {[round(loss, 6) for _, loss, _ in h['history']]}, largest relative "
+            f"difference from the world of four {rel:.2e} (bar {CHAIN_RTOL:g}); "
+            f"{seconds:.1f} s of wall time (beside the examples)"
+        )
+        expect(rel <= CHAIN_RTOL, f"{label}: a resumed loss differs by {rel:.2e}")
+        recs.append(
+            dict(link=label, resume=resume, history=h["history"], max_rel=rel, wall_s=seconds)
+        )
+    print(f"  the chain took {time.perf_counter() - t_chain:.1f} s")
+    return recs
+
+
+def example_main(path, args):
+    """This script's --example mode, one example as its own process (phase 20): its
+    ``main()`` on the card (given ``args`` where there are any), then one line of what
+    it returned, the kernels' launches in it and its seconds."""
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    sys.argv = [path, *args]
+    t0 = time.perf_counter()
+    figures = module.main(args) if args else module.main()
+    seconds = time.perf_counter() - t0
+    launches = {
+        name: importlib.import_module(f"repro_torch.kernels.{mod}").launches
+        for name, mod in (
+            ("similarity", "similarity.similarity"),
+            ("flash_attention", "attention.flash"),
+            ("sprt", "sprt.sprt"),
+        )
+    }
+    record = {"figures": figures, "launches": launches, "seconds": seconds}
+    print("EXAMPLE " + json.dumps(record))
+
+
+def run_example(path, work):
+    """One example as its own process on the card (``--example``): (what it printed in
+    its record line, the wall seconds)."""
+    from repro_torch.launch.mesh import run_bounded
+
+    name = os.path.basename(path)
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--example", path]
+    cmd.append(json.dumps(EXAMPLE_ARGS.get(name, [])))
+    t0 = time.perf_counter()
+    p = run_bounded(cmd, EXAMPLE_TIMEOUT, cwd=work, env=subprocess_env())
+    seconds = time.perf_counter() - t0
+    expect(p.returncode == 0, f"{name} exited {p.returncode}:\n{p.stderr[-4000:]}")
+    line = [ln for ln in p.stdout.splitlines() if ln.startswith("EXAMPLE ")]
+    expect(len(line) == 1, f"{name} printed no result")
+    return json.loads(line[0][len("EXAMPLE "):]), seconds
+
+
+def examples_phase(card, results):
+    """Phase 20: every examples/torch_*.py as its own process on the card (EXAMPLE_WORKERS
+    at a time, beside the chain; ``results`` the futures), each exiting 0 with what its
+    ``main()`` returned printed, the quickstart's drift alarm gated, and each one's
+    kernel launches. Returns the record."""
+    print(f"== 20. the examples, each its own process on {card}, {EXAMPLE_WORKERS} at a time")
+    rec, totals = {}, {}
+    for name, fut in results.items():
+        r, seconds = fut.result()
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"  {name}: {json.dumps(r['figures'])}")
+        print(f"    kernel launches {r['launches']}; {seconds:.1f} s of wall time (shared)")
+        rec[name] = dict(launches=r["launches"], wall_s=seconds, main_s=r["seconds"])
+    delay = results["torch_quickstart.py"].result()[0]["figures"]["detection_delay"]
+    expect(delay is not None, "the quickstart missed its injected drift")
+    expect(totals.get("similarity", 0) > 0, "no example launched the similarity kernel")
+    expect(totals.get("sprt", 0) > 0, "no example launched the SPRT kernel")
+    expect(totals.get("flash_attention", 0) > 0, "no example launched the flash kernel")
+    rec["launches"] = totals
     return rec
 
 
@@ -3021,6 +3244,24 @@ def main():
     control = control_phase(dev, card, counted)
     print(json.dumps({"control": control}))
 
+    # ------------------------------ 19, 20. several processes; the examples
+    with tempfile.TemporaryDirectory() as work:
+        multiproc = {"card": card, "serve": launcher_phase(card, serving, work)}
+        paths = sorted(  # the longest first: the fleet's eager dispatches, the trainer
+            glob.glob(os.path.join(ROOT, "examples", "torch_*.py")),
+            key=lambda p: (os.path.basename(p) not in EXAMPLES_FIRST, p),
+        )
+        t_shared = time.perf_counter()
+        with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:  # on the card beside the chain
+            futures = {os.path.basename(p): pool.submit(run_example, p, work) for p in paths}
+            multiproc["chain"] = chain_phase(work)
+            print(json.dumps({"multiproc": multiproc}))
+            examples = examples_phase(card, futures)
+        examples["shared_s"] = time.perf_counter() - t_shared
+        print(f"  the chain and the examples together took {examples['shared_s']:.1f} s")
+        print(json.dumps({"examples": examples}))
+    example_launches = examples["launches"]
+
     # ----------------------------------------------------------- 13. kernels
     t = timings["surveil"]
     train_shape = "x = y {0}x{2}, float32 (G = sim(D, D))".format(*TRAIN_SHAPE)
@@ -3032,6 +3273,7 @@ def main():
             "replaces": "src/repro/kernels/similarity/similarity.py:47",
             "launches": launches,
             "control_launches": control["controller"]["launches"]["similarity"],
+            "examples_launches": example_launches["similarity"],
             "analytic_launches": analytic["service_k1_launches"],
             "analytic_max_abs_err": analytic["service_k1_max_abs_err"],
             "sharded_launches": sharded["k1_launches"],
@@ -3068,6 +3310,7 @@ def main():
             "prefill_32k": flash_timings["prefill_32k"],
             "training_launches": training["k2_launches"],
             "sharded_launches": sharded["k2_launches"],
+            "examples_launches": example_launches["flash_attention"],
             "serve_f32": flash_timings["serve_f32"],
         },
         {
@@ -3077,6 +3320,7 @@ def main():
             "replaces": "src/repro/mset/sprt.py:44",
             "launches": sprt_launches,
             "control_launches": control["controller"]["launches"]["sprt"],
+            "examples_launches": example_launches["sprt"],
             **sprt_timing,
         },
     ]
@@ -3085,6 +3329,12 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--chain-rank"]:  # one rank of phase 19's chain, under torchrun
+        chain_rank(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--example"]:  # one example of phase 20, as its own process
+        example_main(sys.argv[2], json.loads(sys.argv[3]))
+        sys.exit(0)
     try:
         main()
     except SmokeFailure as e:

@@ -130,16 +130,20 @@ def analytic_recommendation(
     return rec
 
 
-def main(device=None):
-    """Scoping on ``device``, then both customers over the whole catalog. Returns
-    (the response surface, customer A's recommendation, customer B's)."""
+def main(device=None) -> dict:
+    """Scoping on ``device``, then both customers over the whole catalog. Returns the
+    response surface's r^2 and each customer's shape, reason and ranking."""
     surf = measured_scoping(device)
     # Customer A: 20 signals @ 1/hr (paper §I) — anything works; cheapest wins.
     rec_a = analytic_recommendation(CUSTOMER_A, sample_rate_hz=1 / 3600)
     # Customer B: fleet of 200 Airbus A320s, 75k sensors @ 1 Hz each — per-plane
     # MSET models must fit aggregate device memory; scoping finds the smallest slice.
     rec_b = analytic_recommendation(CUSTOMER_B, sample_rate_hz=1.0, fleet=200)
-    return surf, rec_a, rec_b
+    out = {"surface_r2": surf.r2}
+    for label, rec in (("customer_a", rec_a), ("customer_b", rec_b)):
+        shape = rec.shape.name if rec.shape else None
+        out[label] = {"shape": shape, "reason": rec.reason, "ranking": rec.ranking}
+    return out
 
 
 if __name__ == "__main__":

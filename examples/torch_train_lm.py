@@ -3,13 +3,20 @@ params) for a few hundred steps, with checkpointing, fault tolerance, and resume
 
     PYTHONPATH=src python examples/torch_train_lm.py --steps 300              # on the card
     PYTHONPATH=src python examples/torch_train_lm.py --smoke --steps 20 --device cpu
-(Ctrl-C and re-run: it resumes from the last checkpoint.)
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        examples/torch_train_lm.py --smoke --steps 20 --device cpu    # sharded, 2 ranks
+(Ctrl-C and re-run: it resumes from the last checkpoint.) Under ``torchrun`` the model
+trains on a mesh of the world's ranks and rank 0 prints.
 
 The counterpart of ``examples/train_lm.py``; it imports only ``repro_torch``.
 """
 
 import argparse
+import dataclasses
 
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import is_main
 from repro_torch.launch.train import TrainJob, train
 
 
@@ -38,12 +45,15 @@ def main(argv=None):
         device=args.device,
     )
     metrics = train(job)
-    print(f"\nfinal: {metrics}")
-    print("loss curve (every 25 steps):")
-    for h in job.history[::25]:
-        print(f"  step {h['step']:4d}: {h['loss']:.4f}")
-    return job, metrics
+    if is_main():
+        print(f"\nfinal: {metrics}")
+        print("loss curve (every 25 steps):")
+        for h in job.history[::25]:
+            print(f"  step {h['step']:4d}: {h['loss']:.4f}")
+    return {"job": dataclasses.asdict(job), "metrics": metrics}
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

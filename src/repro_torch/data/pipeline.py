@@ -10,8 +10,9 @@
   port's ``tpss`` (whose draws come from a ``torch.Generator``; the reference's
   from ``jax.random``).
 
-Placing a batch with a mesh sharding (the reference's ``sharded_batch``) is not ported
-yet: it needs a process per device (ROADMAP item 10).
+``sharded_batch`` places a batch on a mesh, one process a device: every rank draws the
+global batch, as ``batch`` does with one host, so the tokens are the reference's at any
+world size (what an elastic restart needs), and keeps the rows its placements own.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.sharding import local_part
 from repro_torch.tpss import TPSSParams, synthesize_batch
 
 
@@ -58,6 +60,12 @@ class TokenPipeline:
     def batch(self, step: int) -> dict:
         toks = torch.from_numpy(self._host_slice(step)).to(self.device, torch.int64)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def sharded_batch(self, step: int, sharding) -> dict:
+        """``batch(step)`` placed on a mesh by ``sharding``, one ``(mesh, placements)``
+        for both tensors: each rank keeps the rows it owns (no collective), and ranks
+        along ``model`` hold the same rows. ``sharding=None`` gives ``batch(step)``."""
+        return {k: local_part(v, sharding) for k, v in self.batch(step).items()}
 
 
 @dataclass

@@ -23,6 +23,7 @@ import math
 from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import local_map
@@ -103,16 +104,80 @@ def lift(t, like):
     return t
 
 
-def owned(size: int, mesh, placements, dim: int) -> tuple[int, int]:
-    """[lo, hi): this rank's block of a tensor dim of ``size`` that ``placements`` may
-    shard, mesh dim by mesh dim as DTensor orders the shards (even splits)."""
+def owned(size: int, mesh, placements, dim: int, coord=None) -> tuple[int, int]:
+    """[lo, hi): the block of a tensor dim of ``size`` that ``placements`` may shard,
+    held by the rank at mesh coordinate ``coord`` (None: this rank), mesh dim by mesh
+    dim as DTensor orders the shards. An uneven split is ``torch.chunk``'s, as
+    DTensor's: blocks of ceil(n / members), the last ones short or empty."""
     lo, hi = 0, size
     for i, p in enumerate(placements):
         if isinstance(p, Shard) and p.dim == dim:
-            chunk = (hi - lo) // mesh.shape[i]
-            lo += mesh.get_local_rank(i) * chunk
-            hi = lo + chunk
+            chunk = -(-(hi - lo) // mesh.shape[i])
+            at = mesh.get_local_rank(i) if coord is None else coord[i]
+            start = min(lo + at * chunk, hi)
+            lo, hi = start, min(start + chunk, hi)
     return lo, hi
+
+
+def _block(shape, mesh, placements, coord=None) -> tuple:
+    """The slices of a tensor of ``shape`` that the rank at ``coord`` (None: this rank)
+    holds: ``owned`` for every dim."""
+    return tuple(
+        slice(*owned(n, mesh, placements, d, coord)) for d, n in enumerate(shape)
+    )
+
+
+def local_part(t, sharding):
+    """``t`` (a tensor or numpy array, the same whole value on every rank) as a DTensor
+    with ``sharding`` = ``(mesh, placements)`` made from the block this rank owns, on the
+    mesh's device: no collective. ``t`` itself (as a tensor) for None."""
+    t = torch.as_tensor(t)
+    if sharding is None:
+        return t
+    mesh, placements = sharding
+    local = t[_block(t.shape, mesh, placements)].contiguous().to(mesh.device_type)
+    stride = torch.empty(t.shape, device="meta").stride()
+    return DTensor.from_local(
+        local, mesh, placements, run_check=False, shape=t.shape, stride=stride
+    )
+
+
+def full(t):
+    """The whole value of a DTensor on every rank (a collective: every rank must call
+    it, in the same order); any other value as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def to_main(t):
+    """A DTensor's whole value on rank 0 (or alone) as a tensor on the host, None on every
+    other rank: one copy of it in the world, gathered block by block (``dist.gather``, a
+    collective: every rank calls it, in the same order). Any other value as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    main = dist.get_rank() == 0
+    mesh = t.device_mesh
+    placements = [Replicate() if isinstance(p, Partial) else p for p in t.placements]
+    if placements != list(t.placements):  # a pending sum is reduced first
+        t = t.redistribute(mesh, placements)
+    world = dist.get_world_size()
+    if mesh.mesh.numel() != world:
+        raise ValueError(f"a mesh of {mesh.mesh.numel()} ranks in a world of {world}")
+    local = t.to_local()
+    if world == 1:
+        return local.cpu()
+    # every block padded to the largest, the first one's (torch.chunk's split)
+    top = _block(t.shape, mesh, placements, (0,) * mesh.ndim)
+    buf = local.new_zeros([b.stop - b.start for b in top])
+    buf[tuple(slice(0, n) for n in local.shape)] = local
+    parts = [torch.empty_like(buf) for _ in range(world)] if main else None
+    dist.gather(buf, parts, dst=0)
+    if not main:
+        return None
+    out = torch.empty(t.shape, dtype=t.dtype)
+    for rank, part in enumerate(parts):
+        block = _block(t.shape, mesh, placements, (mesh.mesh == rank).nonzero()[0].tolist())
+        out[block] = part[tuple(slice(0, b.stop - b.start) for b in block)].cpu()
+    return out
 
 
 def local_call(fn, out_placements: tuple, *args):
@@ -230,17 +295,14 @@ def make_rules(mesh, overrides: Optional[dict] = None) -> ShardingRules:
 
 
 def _local_shape(shape, mesh, placements) -> list:
-    local = list(shape)
-    for size, p in zip(mesh.shape, placements):
-        if isinstance(p, Shard):
-            local[p.dim] //= size
-    return local
+    return [b.stop - b.start for b in _block(shape, mesh, placements)]
 
 
 def place(t: torch.Tensor, sharding, requires_grad: Optional[bool] = None):
     """``t`` as a DTensor with ``sharding`` = ``(mesh, placements)``, ``t`` itself for
-    None. A meta tensor becomes its local shard directly (no collective, no global
-    allocation); any other is distributed from its full value."""
+    None; a DTensor is redistributed. No collective otherwise: a meta tensor becomes its
+    local shard directly (no global allocation); any other, the same whole value on
+    every rank, keeps this rank's block (``local_part``)."""
     if sharding is None:
         return t
     mesh, placements = sharding
@@ -249,7 +311,7 @@ def place(t: torch.Tensor, sharding, requires_grad: Optional[bool] = None):
     if t.device.type == "meta":
         out = zeros(t.shape, t.dtype, "meta", sharding)
     else:
-        out = distribute_tensor(t.detach(), mesh, placements)
+        out = local_part(t.detach(), sharding)
     if requires_grad is not None:
         out.requires_grad_(requires_grad)
     return out

@@ -28,7 +28,13 @@ from torch.distributed.tensor import Replicate
 
 from repro_torch import _tree
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.distributed.sharding import ShardingRules, is_sharding, place, unbox_values
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    full,
+    is_sharding,
+    place,
+    unbox_values,
+)
 from repro_torch.models.layers import _run
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, adamw
@@ -94,6 +100,7 @@ class StepBuilder:
     ):
         self.cfg = cfg
         self.rules = rules
+        self.trainable = trainable
         self.model = Model(cfg, device, trainable=trainable, ep_size=self._ep_size())
         self.n_microbatches = n_microbatches
         self.opt = opt or AdamWConfig()
@@ -108,8 +115,13 @@ class StepBuilder:
 
     def reset(self, seed: int):
         """Fresh weights drawn from ``seed`` and a fresh AdamW state. A model on the
-        meta device has no data to draw."""
-        if self.model.device.type != "meta":
+        meta device has no data to draw; a sharded one takes the weights of an unsharded
+        twin drawn whole, as at construction."""
+        if self.model.rules is not None:
+            twin = Model(self.cfg, self.model.device, self.trainable, self._ep_size())
+            twin.init_weights(torch.Generator(twin.device).manual_seed(seed))
+            self.model.load_numpy(twin.to_numpy())
+        elif self.model.device.type != "meta":
             self.model.init_weights(torch.Generator(self.model.device).manual_seed(seed))
         self.opt_state = adamw.init(self.params)
 
@@ -240,13 +252,14 @@ class StepBuilder:
     # ---------------- the reference's (params, opt_state) tree ----------------
     def state_tree(self):
         """(params, AdamWState(step, mu, nu)) as numpy arrays in the reference's trees:
-        what its trainer checkpoints."""
+        what its trainer checkpoints. On a mesh each sharded leaf is gathered to rank 0
+        alone, a collective: every rank calls this, and the other ranks' parameters and
+        moments are None (``Model.to_numpy``)."""
         st = self.opt_state
+        to_numpy = self.model.to_numpy
         return (
-            self.model.to_numpy(),
-            adamw.AdamWState(
-                st.step.cpu().numpy(), self.model.to_numpy(st.mu), self.model.to_numpy(st.nu)
-            ),
+            to_numpy(),
+            adamw.AdamWState(st.step.cpu().numpy(), to_numpy(st.mu), to_numpy(st.nu)),
         )
 
     def state_like(self):
@@ -256,9 +269,11 @@ class StepBuilder:
 
     def load_state_tree(self, tree):
         """Copy a (params, AdamWState) tree in the reference's layout into the model's
-        parameters and the AdamW state."""
+        parameters and the AdamW state; its leaves numpy arrays, or DTensors placed by
+        ``param_shardings`` and ``opt_shardings`` (``Checkpointer.restore`` with
+        shardings)."""
         params, st = tree
         self.model.load_numpy(params)
         self.model.load_numpy(st.mu, into=self.opt_state.mu)
         self.model.load_numpy(st.nu, into=self.opt_state.nu)
-        self.opt_state.step.fill_(int(st.step))
+        self.opt_state.step.fill_(int(full(st.step)))

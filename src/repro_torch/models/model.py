@@ -17,7 +17,17 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Box, place, unbox_axes, zeros
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (
+    Box,
+    full,
+    local_part,
+    place,
+    to_main,
+    unbox_axes,
+    zeros,
+)
 from repro_torch.models import layers, moe, transformer
 
 
@@ -186,12 +196,18 @@ class Model(nn.Module):
 
     def to_numpy(self, values: dict | None = None) -> dict:
         """The parameters (or ``values``, a tensor for each parameter name, such as
-        AdamW's moments) as the reference's ``init_values`` tree, in float32."""
+        AdamW's moments) as the reference's ``init_values`` tree, in float32. A sharded
+        leaf is gathered to rank 0 alone (``to_main``), a collective: on a mesh every rank
+        calls this, and every rank but 0 gets None for it."""
 
         def host(t):  # a copy, never a view of a parameter on the CPU
-            return t.detach().to("cpu", torch.float32, copy=True).numpy()
+            t = to_main(t.detach())
+            return None if t is None else t.to("cpu", torch.float32, copy=True).numpy()
 
-        return self._tree(host, np.stack, values)
+        def stack(layers):
+            return None if layers[0] is None else np.stack(layers)
+
+        return self._tree(host, stack, values)
 
     def tree_like(self) -> dict:
         """The reference's parameter tree with a meta tensor of each leaf's shape and no
@@ -232,17 +248,37 @@ class Model(nn.Module):
         into the parameters, or into ``into[name]`` for each parameter name. An expert
         stack padded otherwise than the model's (the reference pads to a multiple of
         its mesh's ``model`` axis) has its padding cut off or zero-filled: the router
-        never selects a padded expert."""
+        never selects a padded expert.
+
+        On a mesh each rank writes the block of each leaf that it owns into its local
+        shard. A leaf may also be a DTensor (``Checkpointer.restore`` with shardings):
+        placed as the parameter, its local block is copied as it is; placed otherwise or
+        padded otherwise, it is gathered whole first (a collective)."""
         with torch.no_grad():
             for name, path, s, p in self._tree_leaves():
                 a = _get(params, path)
-                a = np.asarray(a if s is None else a[s])
+                a = a if s is None else a[s]
+                dst = p if into is None else into[name]
+                if (
+                    isinstance(a, DTensor)
+                    and isinstance(dst, DTensor)
+                    and a.shape == dst.shape
+                    and a.placements == dst.placements
+                ):
+                    dst.to_local().copy_(a.to_local())
+                    continue
+                if torch.is_tensor(a):
+                    a = full(a).detach().to("cpu", torch.float32).numpy()
+                a = np.asarray(a)
                 if isinstance(self.get_submodule(name.rpartition(".")[0]), moe.MoE):
                     a = _repad(a, p.shape)
                 if a.shape != tuple(p.shape):
                     raise ValueError(f"{'.'.join(map(str, path))}: {a.shape} vs {tuple(p.shape)}")
-                dst = p if into is None else into[name]
-                dst.copy_(torch.from_numpy(np.array(a, np.float32)))
+                src = torch.from_numpy(np.array(a, np.float32))
+                if isinstance(dst, DTensor):
+                    src = local_part(src, (dst.device_mesh, dst.placements)).to_local()
+                    dst = dst.to_local()
+                dst.copy_(src)
         return self
 
     @classmethod

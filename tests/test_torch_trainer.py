@@ -128,6 +128,7 @@ def test_train_lm_example_runs_on_the_cpu(tmp_path, capsys):
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     argv = ["--smoke", "--steps", "4", "--seq-len", "32", "--batch", "4", "--device", CPU]
-    job, m = example.main(argv + ["--ckpt-dir", str(tmp_path)])
-    assert job.n_microbatches == 2 and job.peak_lr == 6e-4 and m["steps"] == 4
+    r = example.main(argv + ["--ckpt-dir", str(tmp_path)])
+    job, m = r["job"], r["metrics"]
+    assert job["n_microbatches"] == 2 and job["peak_lr"] == 6e-4 and m["steps"] == 4
     assert np.isfinite(m["final_loss"]) and "loss curve" in capsys.readouterr().out
