@@ -1,5 +1,6 @@
-"""Structured fleet metrics: counters, gauges, fixed-bucket histograms and
-per-bin series, all labeled (pool, request class, policy family, ...).
+"""The fleet's metric catalog, recorded into the instruments of
+:mod:`repro_torch._telemetry` (counters, gauges, fixed-bucket histograms and
+per-bin series, all labeled: pool, request class, policy family, ...).
 
 The registry is the passive half of the telemetry layer: instruments are
 plain accumulators with no clocks and no I/O, so recording is deterministic —
@@ -47,182 +48,9 @@ have one value per time bin regardless of the replicate budget.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-
 import numpy as np
 
-# Latency-shaped default buckets (seconds): sub-10 ms to 5 min, +Inf.
-DEFAULT_TIME_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
-                        10.0, 30.0, 60.0, 120.0, 300.0, float("inf"))
-
-
-def _label_key(labels: dict) -> tuple:
-    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
-
-
-def label_str(labels) -> str:
-    """Canonical ``k=v,k2=v2`` rendering (sorted; '' for no labels)."""
-    items = labels.items() if isinstance(labels, dict) else labels
-    return ",".join(f"{k}={v}" for k, v in sorted(
-        (str(k), str(v)) for k, v in items))
-
-
-@dataclass
-class Counter:
-    """Monotone accumulator (``_total`` metrics)."""
-    name: str
-    labels: dict
-    value: float = 0.0
-
-    def inc(self, v: float = 1.0) -> None:
-        self.value += float(v)
-
-
-@dataclass
-class Gauge:
-    """Last-write-wins point value."""
-    name: str
-    labels: dict
-    value: float = float("nan")
-
-    def set(self, v: float) -> None:
-        self.value = float(v)
-
-
-@dataclass
-class Series:
-    """A per-bin stream (one float per simulated time bin, appended in
-    order). The time-indexed metric the sparkline dashboard plots and the
-    drift probe consumes."""
-    name: str
-    labels: dict
-    values: list = field(default_factory=list)
-
-    def extend(self, vals) -> None:
-        self.values.extend(float(v) for v in np.asarray(vals, float).ravel())
-
-    def append(self, v: float) -> None:
-        self.values.append(float(v))
-
-    def array(self) -> np.ndarray:
-        return np.asarray(self.values, float)
-
-
-@dataclass
-class Histogram:
-    """Fixed-bucket cumulative histogram (Prometheus ``le`` semantics):
-    ``counts[i]`` is the mass with value <= ``buckets[i]``. ``observe``
-    accepts weighted batches (per-request sojourns weighted by cohort
-    mass)."""
-    name: str
-    labels: dict
-    buckets: tuple = DEFAULT_TIME_BUCKETS
-    counts: np.ndarray = None
-    sum: float = 0.0
-    count: float = 0.0
-
-    def __post_init__(self):
-        self.buckets = tuple(float(b) for b in self.buckets)
-        if list(self.buckets) != sorted(self.buckets) or \
-                self.buckets[-1] != float("inf"):
-            raise ValueError(f"histogram {self.name!r}: buckets must be "
-                             "sorted and end with +inf")
-        if self.counts is None:
-            self.counts = np.zeros(len(self.buckets))
-
-    def observe(self, values, weights=None) -> None:
-        v = np.asarray(values, float).ravel()
-        w = np.ones_like(v) if weights is None \
-            else np.asarray(weights, float).ravel()
-        keep = w > 0
-        v, w = v[keep], w[keep]
-        if v.size == 0:
-            return
-        idx = np.searchsorted(np.asarray(self.buckets[:-1]), v, side="left")
-        np.add.at(self.counts, idx, w)
-        self.sum += float((v * w).sum())
-        self.count += float(w.sum())
-
-    def cumulative(self) -> np.ndarray:
-        return np.cumsum(self.counts)
-
-    def quantile(self, q: float) -> float:
-        """Bucket-resolution quantile (upper bound of the covering bucket)."""
-        if self.count <= 0:
-            return float("nan")
-        cum = self.cumulative()
-        i = int(np.searchsorted(cum, q * self.count, side="left"))
-        return self.buckets[min(i, len(self.buckets) - 1)]
-
-
-_KINDS = {"counter": Counter, "gauge": Gauge, "series": Series,
-          "histogram": Histogram}
-
-
-class MetricsRegistry:
-    """Labeled metric store. ``counter/gauge/series/histogram`` get-or-create
-    the instrument for (name, labels); one name maps to one kind."""
-
-    def __init__(self):
-        self._metrics: dict = {}     # (name, label_key) -> instrument
-        self._kind_of: dict = {}     # name -> kind str
-
-    def _get(self, kind: str, name: str, labels: dict, **kw):
-        have = self._kind_of.setdefault(name, kind)
-        if have != kind:
-            raise ValueError(f"metric {name!r} already registered as {have}, "
-                             f"not {kind}")
-        key = (name, _label_key(labels))
-        m = self._metrics.get(key)
-        if m is None:
-            m = _KINDS[kind](name=name, labels=dict(labels), **kw)
-            self._metrics[key] = m
-        return m
-
-    def counter(self, name: str, **labels) -> Counter:
-        return self._get("counter", name, labels)
-
-    def gauge(self, name: str, **labels) -> Gauge:
-        return self._get("gauge", name, labels)
-
-    def series(self, name: str, **labels) -> Series:
-        return self._get("series", name, labels)
-
-    def histogram(self, name: str, buckets=DEFAULT_TIME_BUCKETS,
-                  **labels) -> Histogram:
-        return self._get("histogram", name, labels, buckets=buckets)
-
-    def get(self, name: str, **labels):
-        """The instrument for (name, labels), or ``None``."""
-        return self._metrics.get((name, _label_key(labels)))
-
-    def __len__(self) -> int:
-        return len(self._metrics)
-
-    def items(self):
-        """(name, labels, instrument) triples in deterministic order."""
-        for key in sorted(self._metrics):
-            m = self._metrics[key]
-            yield m.name, m.labels, m
-
-    def snapshot(self) -> dict:
-        """Plain-python deterministic dump: ``{kind: {name: {label_str:
-        value-ish}}}``. Two identically-seeded runs produce equal
-        snapshots; the numpy and torch backends produce equal snapshots."""
-        out = {"counter": {}, "gauge": {}, "series": {}, "histogram": {}}
-        for name, labels, m in self.items():
-            kind = self._kind_of[name]
-            slot = out[kind].setdefault(name, {})
-            ls = label_str(labels)
-            if kind == "counter" or kind == "gauge":
-                slot[ls] = m.value
-            elif kind == "series":
-                slot[ls] = list(m.values)
-            else:
-                slot[ls] = {"buckets": list(m.buckets),
-                            "counts": [float(c) for c in m.counts],
-                            "sum": m.sum, "count": m.count}
-        return out
+from repro_torch._telemetry import MetricsRegistry
 
 
 def service_time_stream(sim) -> np.ndarray:

@@ -5,7 +5,9 @@ a shared library under ``_build/`` (listed in ``.gitignore``), keyed by a hash o
 its source, the headers it includes with quotes (``kernels/csrc/hopper.cuh``) and
 the flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. Nothing is compiled when a module is imported: the CPU tests
-import every module on machines without nvcc.
+import every module on machines without nvcc. A telemetry session sees each
+library's first load in a process as a ``kernels.build`` span (``kernel``,
+``cached``) and the counter ``kernel_builds_total{kernel,cached}``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from repro_torch._telemetry import counter, span
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -99,7 +103,12 @@ def load(source: Path) -> ctypes.CDLL:
     """The loaded library built from ``source`` (built first if needed)."""
     source = Path(source).resolve()
     if source not in _LIBS:
-        _LIBS[source] = ctypes.CDLL(str(build(source).library))
+        with span("kernels.build", kernel=source.stem) as s:
+            built = build(source)
+            if s is not None:
+                s.attrs["cached"] = built.cached
+            _LIBS[source] = ctypes.CDLL(str(built.library))
+        counter("kernel_builds_total", kernel=source.stem, cached=str(built.cached).lower())
     return _LIBS[source]
 
 

@@ -10,6 +10,12 @@ Surveillance (paper Fig. 5 cost driver), streamed over observations x:
     w     = Ginv · (D (x) x)
     x_hat = w^T · D
 residuals x - x_hat feed the SPRT detector (sprt.py).
+
+Each step runs inside a telemetry span (``repro_torch._telemetry``): ``mset2.train``
+with ``.standardize``, ``.memory_vectors``, ``.bandwidth``, ``.similarity`` and
+``.pinv``; ``mset2.estimate`` with ``.standardize``, ``.similarity``, ``.ginv_k``,
+``.wt_d`` and ``.residuals``. They cost one check each unless the profiler records or
+a session is open.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
+from repro_torch._telemetry import span
 from repro_torch.kernels.similarity import similarity
 from repro_torch.mset.memory_vectors import build_memory_matrix
 
@@ -99,30 +106,45 @@ def train(
     ``step(name, fn)`` runs each named step as ``fn()``; a caller may pass one that
     times the steps.
     """
-    Xf = X.float()
-    mean = torch.mean(Xf, dim=0)
-    std = torch.std(Xf, dim=0, correction=0) + 1e-6
-    Xs = (Xf - mean) / std
+    with span("mset2.train"):
+        with span("mset2.train.standardize"):
+            Xf = X.float()
+            mean = torch.mean(Xf, dim=0)
+            std = torch.std(Xf, dim=0, correction=0) + 1e-6
+            Xs = (Xf - mean) / std
 
-    D, _ = step("memory vectors", lambda: build_memory_matrix(Xs, n_memvec))
-    g = float(gamma) if gamma is not None else step("bandwidth", lambda: float(_bandwidth(D)))
+        with span("mset2.train.memory_vectors"):
+            D, _ = step("memory vectors", lambda: build_memory_matrix(Xs, n_memvec))
+        if gamma is not None:
+            g = float(gamma)
+        else:
+            with span("mset2.train.bandwidth"):
+                g = step("bandwidth", lambda: float(_bandwidth(D)))
 
-    G = step("similarity D x D", lambda: similarity(D, D, gamma=g, kind=kind))  # (m, m)
-    Ginv = step("eigh pseudo-inverse", lambda: regularized_pinv(G, reg))
-    return MSETModel(D=D, Ginv=Ginv, gamma=g, kind=kind, mean=mean, std=std)
+        with span("mset2.train.similarity"):
+            G = step("similarity D x D", lambda: similarity(D, D, gamma=g, kind=kind))  # (m, m)
+        with span("mset2.train.pinv"):
+            Ginv = step("eigh pseudo-inverse", lambda: regularized_pinv(G, reg))
+        return MSETModel(D=D, Ginv=Ginv, gamma=g, kind=kind, mean=mean, std=std)
 
 
 def estimate(model: MSETModel, X, step: Callable[[str, Callable[[], Any]], Any] = _run):
     """X: (b, n) observations -> (x_hat (b, n), residuals (b, n)). ``step`` as in ``train``."""
-    Xs = (X.float() - model.mean) / model.std
-    K = step(
-        "similarity D x X",
-        lambda: similarity(model.D, Xs, gamma=model.gamma, kind=model.kind),
-    )
-    W = step("Ginv K", lambda: model.Ginv @ K)  # (m, b)
-    Xhat_s = step("W^T D", lambda: W.T @ model.D)  # (b, n)
-    Xhat = Xhat_s * model.std + model.mean
-    return Xhat, X - Xhat
+    with span("mset2.estimate"):
+        with span("mset2.estimate.standardize"):
+            Xs = (X.float() - model.mean) / model.std
+        with span("mset2.estimate.similarity"):
+            K = step(
+                "similarity D x X",
+                lambda: similarity(model.D, Xs, gamma=model.gamma, kind=model.kind),
+            )
+        with span("mset2.estimate.ginv_k"):
+            W = step("Ginv K", lambda: model.Ginv @ K)  # (m, b)
+        with span("mset2.estimate.wt_d"):
+            Xhat_s = step("W^T D", lambda: W.T @ model.D)  # (b, n)
+        with span("mset2.estimate.residuals"):
+            Xhat = Xhat_s * model.std + model.mean
+            return Xhat, X - Xhat
 
 
 def surveil(model: MSETModel, X_stream):

@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch._telemetry import device_counter, span
 from repro_torch.kernels.sprt import sprt_scan
 
 F32 = torch.float32
@@ -40,9 +41,19 @@ def sprt(residuals, sigma, p: SPRTParams = SPRTParams(), mu=None):
     data (mu defaults to 0). Returns (alarms (T, n), llr_pos, llr_neg).
 
     The recursion is one CUDA kernel for residuals on the card (K3) and the plain
-    loop over time for residuals on the CPU (``kernels.sprt``).
+    loop over time for residuals on the CPU (``kernels.sprt``), inside the span
+    ``mset2.sprt``. With a telemetry session open, K3 adds its pass-2 re-run steps to
+    the session's counter ``sprt_rerun_steps_total``.
     """
-    return sprt_scan(residuals, sigma, mu, m_shift=p.m_shift, upper=p.upper, lower=p.lower)
+    reruns = (
+        device_counter("sprt_rerun_steps_total", residuals.device, size=2)
+        if residuals.is_cuda
+        else None
+    )
+    with span("mset2.sprt"):
+        return sprt_scan(
+            residuals, sigma, mu, m_shift=p.m_shift, upper=p.upper, lower=p.lower, reruns=reruns
+        )
 
 
 def empirical_false_alarm_rate(alarms) -> torch.Tensor:

@@ -147,6 +147,34 @@ def test_sprt_chunked_kernel_equals_the_plain_loop_bit_for_bit(cuda, name, chunk
     assert counter.tolist() == [int(reruns.sum()), int(reruns.max())]
 
 
+def test_a_session_times_mset2_on_the_card_and_counts_k3_reruns(cuda):
+    from repro_torch import _telemetry
+
+    seed, n_signals, n_obs, n_memvec = WELL_POSED[2]
+    X = torch.from_numpy(telemetry(seed, n_obs, n_signals)).to(cuda)
+    n_tr = n_obs * 3 // 4
+    # the pathological case re-runs the whole of every chunk after the first
+    r, sigma, mu = (None if x is None else torch.from_numpy(x).to(cuda)
+                    for x in case_inputs("pathological"))
+    p = SPRTParams()
+    with _telemetry.session() as tel:
+        model = train(X[:n_tr], n_memvec=n_memvec)
+        estimate(model, X[n_tr:])
+        for _ in range(2):
+            sprt(r, sigma, p, mu=mu)
+    names = [s.name for s in tel.tracer.roots]
+    assert names == ["mset2.train", "mset2.estimate", "mset2.sprt", "mset2.sprt"]
+    for root in tel.tracer.roots:
+        for s, _, _ in root.walk():
+            assert s.device_ms is not None and s.device_ms >= 0, s.name
+    assert " dev " in tel.tracer.render().splitlines()[0]
+    T, n = r.shape
+    L = sprt_module.chunk_length(T, n, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    *_, reruns = sprt_chunked_ref(r, sigma, mu, p.m_shift, p.upper, p.lower, L)
+    assert int(reruns.sum()) > 0
+    assert "sprt_rerun_steps_total " + repr(2.0 * int(reruns.sum())) in tel.prometheus()
+
+
 def test_synthesis_on_the_card(cuda):
     p = TPSSParams(n_signals=16, n_obs=1024)
     a, b = synthesize(5, p, device=cuda), synthesize(5, p, device=cuda)
