@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Phases, in the order they run (numbered in the order they were added: 14, 15, 16, 17
-and 18 run after 9, 19 and 20 after 12); any failure exits non-zero:
+Phases, in the order they run (numbered in the order they were added: 21 runs after 4,
+14, 15, 16, 17 and 18 after 9, 19 and 20 after 12); any failure exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch's device name and count;
-2. build: the three kernels, ``kernels/similarity/csrc/similarity.cu`` and
-   ``kernels/attention/csrc/flash.cu`` (each with the shared ``kernels/csrc/hopper.cuh``)
-   and ``kernels/sprt/csrc/sprt.cu`` (its two passes), one nvcc each, started together;
+2. build: the four kernels, ``kernels/similarity/csrc/similarity.cu``,
+   ``kernels/gemm/csrc/gemm.cu`` (both with the shared ``kernels/csrc/hopper.cuh`` and
+   ``tf32.cuh``), ``kernels/attention/csrc/flash.cu`` (with ``hopper.cuh``) and
+   ``kernels/sprt/csrc/sprt.cu`` (its two passes), one nvcc each, started together;
    ptxas's registers and spills for each instance (none may spill);
 3. the similarity kernel against its plain version on the card: tests/test_kernels.py's
    sweep plus ragged shapes (n of 1, 3 and 1000; m and b off multiples of 64), float32
@@ -20,6 +21,13 @@ and 18 run after 9, 19 and 20 after 12); any failure exits non-zero:
    (one TF32 product), plain version, ``torch.matmul`` (library yardstick for the
    product alone; under TF32 too, as context) and the bounds; and the device time of
    a call by kernel (split pre-pass, product) from torch.profiler;
+21. K4 (W = Ginv K, ``kernels/gemm``) against float64 and cuBLAS float32 on the
+   full-width cell's own Ginv (trained at the benchmark cells' reg 1e-2) and a batch's
+   K, at ragged shapes and on random operands of a Fig. 8 batch, an A320 batch and a
+   scope cell: its error at most twice cuBLAS's and never above 1e-2, one TF32
+   product's above that bar, the same bits with Ginv's planes given; timed at those
+   shapes beside cuBLAS float32 (the plain version) and its bound, with the device time
+   of each of its kernels;
 5. the MSET2 path: ContainerStress.run_measured over the "paper" grid and the
    full-width Fig. 8 cell (1024 signals, 8192 memory vectors, 65,536 observations),
    response surface, recommendation over the h100 shapes, SPRT on the full-width
@@ -182,6 +190,23 @@ TOL = 5e-6
 KINDS = ("inverse_distance", "gaussian")
 TRAIN_SHAPE = (8192, 8192, 1024)  # G = sim(D, D): m x m over n signals
 SURVEIL_SHAPE = (8192, 65536, 1024)  # K = sim(D, X): m x b over n signals
+# W = Ginv K (K4): (m, k, n) = (m, m, b) at a Fig. 8 batch, an A320 batch and a scope cell
+GEMM_SHAPES = {
+    "fig8 batch": (8192, 8192, 8192),
+    "a320 batch": (8192, 8192, 1024),
+    "scope cell": (8192, 8192, 65536),
+}
+# ragged (m, k, n): off the 128-row tile and the 32-deep K tile
+GEMM_RAGGED = [(1, 1, 1), (33, 1001, 127), (129, 4103, 1000), (1000, 31, 33)]
+GEMM_FACTOR = 2.0  # K4's error against float64 may be this many times cuBLAS f32's
+# ... and never above this, in norm relative to the float64 product's: far below 1 (all
+# zeros) and below one TF32 product's error, so that neither a kernel that writes nothing
+# nor one that keeps only hi.hi passes where cuBLAS itself is far from float64
+GEMM_CAP = 1e-2
+# phase 21's Ginv is the full-width cell's at the benchmark cells' reg. At the default 1e-6
+# W = Ginv K is so ill-conditioned that cuBLAS f32 is 0.61 from float64 and no bar tells a
+# product from zeros; at 1e-2 cuBLAS f32 is 3.9e-3 from it and one TF32 product 0.81.
+GEMM_REG = 1e-2
 SMALL_SEED = 0  # small agreement input; its 32 memory vectors are all distinct
 # flash attention (B, S, H, K, hd): tests/test_kernels.py's shapes, ragged S, small
 # head dims, GQA (minitron-4b's 24/8 and granite-20b's 48/1), and S = 1, 65 and 129
@@ -481,6 +506,106 @@ def float64_errors(D, X, gamma, similarity_cuda, similarity_ref):
     return errs
 
 
+def tf32(t):
+    """t rounded to TF32 (10 fraction bits), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32``: one TF32 product's operands."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def gemm_phase(dev, card, gemm_module, Ginv, K):
+    """Phase 21: K4 (W = Ginv K) against float64 and cuBLAS float32 on the full-width
+    cell's own Ginv (at GEMM_REG) and a batch's K, at ragged shapes and on random operands
+    of the main path's shapes; then timed at those shapes beside cuBLAS float32 (which is
+    also the plain version) and its bound. Each error is in norm, relative to the float64
+    product's; a third, one TF32 product's (hi.hi with float64 sums, the best any one-product
+    kernel can do), shows that the bar would catch such a kernel on the same operands."""
+    print("== 21. K4, W = Ginv K, against float64 and cuBLAS f32")
+    eps = float(torch.finfo(torch.float32).eps)
+
+    def errors(a, b, **kw):
+        """K4's, cuBLAS f32's and one TF32 product's errors, and K4's bar."""
+        exact = a.double() @ b.double()
+        scale = torch.linalg.norm(exact)
+
+        def err(out):
+            return float(torch.linalg.norm(out.double().sub_(exact)) / scale)
+
+        e = dict(
+            kernel=err(gemm_module.gemm_cuda(a, b, **kw)),
+            cublas=err(a @ b),
+            one_tf32=err(tf32(a).double() @ tf32(b).double()),
+        )
+        e["bar"] = min(GEMM_FACTOR * max(e["cublas"], 4 * eps), GEMM_CAP)
+        del exact
+        torch.cuda.empty_cache()
+        return e
+
+    def held(label, e, witness=True):
+        print(
+            f"  {label}: K4 {e['kernel']:.3e}, cuBLAS f32 {e['cublas']:.3e}, one TF32 product "
+            f"{e['one_tf32']:.3e}; bar {e['bar']:.3e}"
+        )
+        expect(e["kernel"] <= e["bar"], f"K4 far from float64 at {label}: {e}")
+        if witness:
+            expect(e["one_tf32"] > e["bar"], f"the bar at {label} would pass one TF32 product")
+
+    planes = gemm_module.split_rows(Ginv)
+    same = torch.equal(gemm_module.gemm_cuda(Ginv, K, planes), gemm_module.gemm_cuda(Ginv, K))
+    cell = errors(Ginv, K, a_split=planes)
+    print(f"  Ginv's planes given, the same bits as K4 splitting Ginv: {same}")
+    expect(same, "K4 with Ginv's planes given differs from K4 splitting Ginv")
+    held(f"the cell's Ginv {tuple(Ginv.shape)} (reg {GEMM_REG:g}) x K {tuple(K.shape)}", cell)
+    del planes
+    g = torch.Generator(device=dev).manual_seed(21)
+    for m, k, n in GEMM_RAGGED:
+        a = torch.randn(m, k, generator=g, device=dev)
+        b = torch.randn(k, n, generator=g, device=dev)
+        # a single product (k = 1) may round to TF32 by chance: no witness there
+        held(f"ragged {m}x{k}x{n}", errors(a, b), witness=k > 1)
+    print(f"== 21. K4 at the main path's shapes, and timed (CUDA events; {card})")
+    timings = {}
+    for label, (m, k, n) in GEMM_SHAPES.items():
+        a = torch.randn(m, k, generator=g, device=dev)
+        b = torch.rand(k, n, generator=g, device=dev)  # similarities lie in (0, 1]
+        float64_err = errors(a, b)
+        held(f"{label} {m}x{k}x{n}, randn x rand", float64_err)
+        iters = max(2, int(2e13 // (m * k * n)))
+        planes = gemm_module.split_rows(a)
+        ms = cuda_ms(lambda: gemm_module.gemm_cuda(a, b, planes), iters)  # as estimate runs
+        split_a_ms = cuda_ms(lambda: gemm_module.gemm_cuda(a, b), iters)
+        library_ms = cuda_ms(lambda: a @ b, iters)
+        bound_ms = 2.0 * m * k * n / TF32_FLOPS * 1e3
+        device_ms = {
+            re.sub(r"^(void )?\(anonymous namespace\)::|\(.*$", "", name): t
+            for name, t in device_ms_by_kernel(lambda: gemm_module.gemm_cuda(a, b)).items()
+        }
+        timings[label] = dict(
+            shape=[m, k, n],
+            ms=ms,
+            split_a_ms=split_a_ms,
+            plain_ms=library_ms,
+            library_ms=library_ms,
+            bound_ms=bound_ms,
+            bound_by="operations",
+            bound_3x_ms=3 * bound_ms,
+            device_ms=device_ms,
+            float64_err=float64_err,
+        )
+        print(
+            f"  {label} {m}x{k}x{n}: K4 {ms:.3f} ms with a's planes given ({split_a_ms:.3f} ms "
+            f"splitting a too), cuBLAS f32 (the plain version) {library_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms (operations; three TF32 products at peak {3 * bound_ms:.3f} "
+            f"ms), K4 at {3 * bound_ms / ms:.1%} of the 3xTF32 peak"
+        )
+        print(
+            "    device time by kernel (torch.profiler): "
+            + (", ".join(f"{k_} {v:.3f} ms" for k_, v in device_ms.items()) or "not measured")
+        )
+        del a, b, planes
+        torch.cuda.empty_cache()
+    return dict(float64_err=cell, timings=timings)
+
+
 def step_timer():
     """(split, step): ``step(name, fn)`` runs fn between two synchronizes and adds its
     host-clock seconds to ``split[name]``; the models' ``step`` hooks take it."""
@@ -549,9 +674,12 @@ def kernel_label(mangled):
     """``flash_tc_kernel<128>`` or ``similarity_tc_kernel<0, true>`` from a mangled name
     in nvcc's ptxas report."""
     m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
-    if m is None:
-        plain = re.search(r"\d+([a-z_]+_kernel)E", mangled)  # not a template
-        return plain.group(1) if plain else mangled
+    if m is None:  # not a template: the innermost of the nested name's <length><name> parts
+        i, name = mangled.find("_ZN") + 3, mangled
+        while i > 2 and (n := re.match(r"\d+", mangled[i:])):
+            i += n.end() + int(n.group())
+            name = mangled[i - int(n.group()) : i]
+        return name
     kernel, args = m.groups()
     dtype = {"f": ["float"], "1": ["bf16"]}.get(args[:1], [])  # f, or 13__nv_bfloat16
     values = [
@@ -2929,6 +3057,7 @@ def main():
 
     sim_module = importlib.import_module("repro_torch.kernels.similarity.similarity")
     sprt_module = importlib.import_module("repro_torch.kernels.sprt.sprt")
+    gemm_module = importlib.import_module("repro_torch.kernels.gemm.gemm")
     f32_matmul_highest()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -2943,7 +3072,12 @@ def main():
     # --------------------------------------------------------------- 2. build
     print("== 2. build")
     flash_module = importlib.import_module("repro_torch.kernels.attention.flash")
-    modules = {"similarity": sim_module, "flash attention": flash_module, "sprt": sprt_module}
+    modules = {
+        "similarity": sim_module,
+        "flash attention": flash_module,
+        "sprt": sprt_module,
+        "gemm": gemm_module,
+    }
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:  # one nvcc for each source, started together
         builds = list(pool.map(_build.build, (m.SOURCE for m in modules.values())))
@@ -3028,12 +3162,13 @@ def main():
 
     # The full-width cell's own operands: its memory matrix against its standardized
     # surveillance observations, as train and estimate make them. The kernel may be no
-    # further from float64 than the plain float32 version is, plus the bar.
+    # further from float64 than the plain float32 version is, plus the bar. (reg decides
+    # Ginv alone, which phase 21 reads.)
     p = FULL_WIDTH_CELL
     n_tr, n_surv = surveillance_split(p)
     tpss = TPSSParams(n_signals=p["n_signals"], n_obs=n_tr + n_surv)
     Xall = synthesize(cell_seed(p), tpss, device=dev)
-    cell_model = train(Xall[:n_tr], n_memvec=p["n_memvec"])
+    cell_model = train(Xall[:n_tr], n_memvec=p["n_memvec"], reg=GEMM_REG)
     Xs = (Xall[n_tr:] - cell_model.mean) / cell_model.std
     del Xall
     tpss_errs = float64_errors(cell_model.D, Xs, cell_model.gamma, similarity_cuda, similarity_ref)
@@ -3044,6 +3179,9 @@ def main():
             f"(kernel bar: plain + {TOL:g})"
         )
         expect(e["kernel"] <= e["plain"] + TOL, f"kernel far from float64 on the cell's {kind_}")
+    # phase 21's operands: the cell's Ginv and the K of a Fig. 8 batch (8,192 observations)
+    cell_Ginv = cell_model.Ginv
+    cell_K = similarity_cuda(cell_model.D, Xs[: GEMM_SHAPES["fig8 batch"][2]], cell_model.gamma)
     del cell_model, Xs
     torch.cuda.empty_cache()
 
@@ -3099,9 +3237,14 @@ def main():
         )
     del D, X
 
+    # ------------------------------------------------------------ 21. K4
+    gemm_checks = gemm_phase(dev, card, gemm_module, cell_Ginv, cell_K)
+    del cell_Ginv, cell_K
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------- 5. main path
     print(f"== 5. the MSET2 path on {card}")
-    sim_module.launches = sprt_module.launches = 0
+    sim_module.launches = sprt_module.launches = gemm_module.launches = 0
     res, surf = run_mset("paper", reps=2, device=dev, verbose=False)
     torch.cuda.reset_peak_memory_stats()
     captured = {}
@@ -3128,9 +3271,14 @@ def main():
     torch.cuda.synchronize()
     sprt_s = time.perf_counter() - t0
     launches, sprt_launches = sim_module.launches, sprt_module.launches
-    print(f"  kernel launches during the main path: similarity {launches}, SPRT {sprt_launches}")
+    gemm_launches = gemm_module.launches
+    print(
+        f"  kernel launches during the main path: similarity {launches}, SPRT {sprt_launches}, "
+        f"gemm {gemm_launches}"
+    )
     expect(launches > 0, "the main path never launched the similarity kernel")
     expect(sprt_launches > 0, "the main path never launched the SPRT kernel")
+    expect(gemm_launches > 0, "the main path never launched the gemm kernel")
 
     for r in res.rows + full.rows:
         print(f"  {card} | {r.params} | {r.mean_s:.6f} s (std {r.std_s:.6f}, {r.reps} reps)")
@@ -3322,6 +3470,14 @@ def main():
             "control_launches": control["controller"]["launches"]["sprt"],
             "examples_launches": example_launches["sprt"],
             **sprt_timing,
+        },
+        {
+            "name": "gemm",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/gemm/csrc/gemm.cu",
+            "replaces": None,  # MSET2's W = Ginv K, which the JAX package leaves to XLA
+            "launches": gemm_launches,
+            **gemm_checks,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels: mbarriers,
 // TMA loads, wgmma shared-memory descriptors and fences, and the host-side encoder of
-// TMA maps. Included by kernels/similarity/csrc/similarity.cu and
-// kernels/attention/csrc/flash.cu; kernels/_build.py hashes it with each of them, so an
-// edit here rebuilds both.
+// TMA maps. Included by kernels/similarity/csrc/similarity.cu, kernels/gemm/csrc/gemm.cu
+// (both through tf32.cuh as well) and kernels/attention/csrc/flash.cu; kernels/_build.py
+// hashes it with each of them, so an edit here rebuilds all three.
 
 #pragma once
 

@@ -20,6 +20,7 @@ a session is open.
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -28,6 +29,7 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch._telemetry import span
+from repro_torch.kernels.gemm import gemm, split_rows
 from repro_torch.kernels.similarity import similarity
 from repro_torch.mset.memory_vectors import build_memory_matrix
 
@@ -45,9 +47,27 @@ class MSETModel(nn.Module):
         self.register_buffer("std", std)  # (n,)
         self.gamma = float(gamma)
         self.kind = kind
+        self._ginv_split = None  # (Ginv, its version and address, its K4 planes); not state
 
     def forward(self, X):
         return estimate(self, X)
+
+    def ginv_split(self):
+        """Ginv's TF32 hi and lo planes, the form in which K4 reads it on the card (twice
+        Ginv's bytes), made once and again only when Ginv is replaced or edited in place
+        (another tensor, another ``_version``). Kept out of the state dict. None where
+        ``gemm`` takes the plain product (off the card) or a version is not tracked."""
+        g = self.Ginv
+        if not g.is_cuda or g.is_inference():
+            return None
+        key = (g._version, g.data_ptr())
+        cached = self._ginv_split
+        if cached is None or cached[0]() is not g or cached[1] != key:
+            cached = self._ginv_split = (weakref.ref(g), key, split_rows(g))
+        return cached[2]
+
+    def __getstate__(self):
+        return dict(super().__getstate__(), _ginv_split=None)  # a weakref does not pickle
 
     @classmethod
     def from_numpy(cls, D, Ginv, mean, std, gamma: float, kind: str, device=None) -> "MSETModel":
@@ -139,7 +159,8 @@ def estimate(model: MSETModel, X, step: Callable[[str, Callable[[], Any]], Any] 
                 lambda: similarity(model.D, Xs, gamma=model.gamma, kind=model.kind),
             )
         with span("mset2.estimate.ginv_k"):
-            W = step("Ginv K", lambda: model.Ginv @ K)  # (m, b)
+            # (m, b); on the card K4, with Ginv split once a model
+            W = step("Ginv K", lambda: gemm(model.Ginv, K, a_split=model.ginv_split()))
         with span("mset2.estimate.wt_d"):
             Xhat_s = step("W^T D", lambda: W.T @ model.D)  # (b, n)
         with span("mset2.estimate.residuals"):

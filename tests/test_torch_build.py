@@ -33,3 +33,17 @@ def test_both_kernels_include_the_shared_hopper_header():
     for module in ("similarity.similarity", "attention.flash"):
         source = importlib.import_module(f"repro_torch.kernels.{module}").SOURCE
         assert shared in _build.sources(source)
+
+
+def test_k1_and_k4_run_one_shared_main_loop():
+    """The 3xTF32 main loop (TMA ring, producer, promoted wgmma products) lives in
+    kernels/csrc/tf32.cuh alone: K1 and K4 include it and issue no wgmma of their own."""
+    shared = (_build.BUILD_DIR.parent / "csrc" / "tf32.cuh").resolve()
+    assert "tf32x3_tile" in shared.read_text()
+    for module in ("similarity.similarity", "gemm.gemm"):
+        source = importlib.import_module(f"repro_torch.kernels.{module}").SOURCE
+        assert shared in _build.sources(source)
+        text = source.read_text()
+        assert "tf32x3_tile<" in text
+        for own in ("mma_tf32(", "tma_load(", "mbar_init(", "encode(map"):
+            assert own not in text, f"{source.name} has its own {own}"

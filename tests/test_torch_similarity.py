@@ -19,6 +19,9 @@ import numpy as np
 from repro_torch.kernels import similarity, similarity_cuda, similarity_ref
 from repro_torch.mset import train
 from repro_torch.tpss import TPSSParams, synthesize
+from torch_tf32_cases import split as _split
+from torch_tf32_cases import tf32 as _tf32
+from torch_tf32_cases import truncating_product as _truncating_product
 
 # the wrapper module, which keeps the launch count (the package's `similarity` is the op)
 sim_module = importlib.import_module("repro_torch.kernels.similarity.similarity")
@@ -120,20 +123,6 @@ def test_unknown_impl_or_kind_raises(impl, kind, err):
 # ------------------------------------------------ the kernel's arithmetic, on the CPU
 
 
-def _tf32(a):
-    """float32 -> TF32 (10 fraction bits), to nearest with ties away from zero, by bit
-    arithmetic on the int32 view: the kernel's cvt.rna.tf32.f32 with the 13 low bits cleared."""
-    a = np.ascontiguousarray(a, dtype=np.float32)
-    bits = (a.view(np.int32) + np.int32(0x1000)) & np.int32(-0x2000)
-    return np.where(np.isfinite(a), bits.view(np.float32), a)
-
-
-def _split(a):
-    """a = hi + lo to about 2^-22 relative; a - hi is exact in float32."""
-    hi = _tf32(a)
-    return hi, _tf32(a - hi)
-
-
 def _product(x, y, terms):
     """x . y^T as the kernel forms it from the split: hi.hi alone (terms 1, one TF32
     product) or lo.hi + hi.lo + hi.hi (terms 3), every product exact and summed in
@@ -144,28 +133,6 @@ def _product(x, y, terms):
     if terms == 3:
         acc += xl.astype(f) @ yh.T.astype(f) + xh.astype(f) @ yl.T.astype(f)
     return acc.astype(np.float32)
-
-
-def _truncating_product(x, y, depth=8, tile=None):
-    """The three products through a float32 accumulator that rounds toward zero after
-    each `depth`-deep step of each product (lo.hi, hi.lo, then hi.hi, as the kernel
-    issues them): a pessimistic model of the tensor cores' adder. With `tile`, each
-    `tile`-deep slice is summed from zero that way and then added into a float32 sum
-    rounded to nearest: the kernel's promotion of each 32-deep K tile."""
-    (xh, xl), (yh, yl) = _split(x), _split(y)
-    total = np.zeros((x.shape[0], y.shape[0]), np.float32)
-    part = np.zeros_like(total)
-    for k in range(0, x.shape[1], depth):
-        if tile and k % tile == 0:
-            total, part = total + part, np.zeros_like(part)
-        for a, c in ((xl, yh), (xh, yl), (xh, yh)):
-            exact = part.astype(np.float64) + (
-                a[:, k : k + depth].astype(np.float64) @ c[:, k : k + depth].T.astype(np.float64)
-            )
-            part = exact.astype(np.float32)
-            away = np.abs(part.astype(np.float64)) > np.abs(exact)
-            part[away] = np.nextafter(part[away], np.float32(0))
-    return total + part
 
 
 def _epilogue(acc, x, y, gamma, kind):
