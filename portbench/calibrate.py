@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Readings for the limits that decide ``correct``: the port on many seeds and the
-control (the reference in TF32 in the port's place) on a few, through the same loops
-and the same check as a run, each with a short window at the cell's own load.
+control (the reference in the precision below the configuration's, in the port's
+place) on a few, each taken from the cell's own system, through the same loop and the
+same check as a run, each with a short window at the cell's own load.
 One process, so set-up's imports and builds are paid once.
 
     python3 portbench/calibrate.py --workload fig8-surveil --seeds 1,2,3 \\
@@ -37,9 +38,9 @@ def main(argv=None) -> int:
     import torch
 
     from portbench import harness, reference, telemetry
-    from portbench.system import SYSTEMS
 
     cell = harness.load_cell(args.workload)
+    systems = harness.systems(cell)
     if args.reg is not None:
         cell.config = dict(cell.config, reg=args.reg)
     cfg = cell.config
@@ -49,9 +50,11 @@ def main(argv=None) -> int:
     with open(args.out, "a") as out:
         for system, seed in plan:
             t = time.perf_counter()
-            run = harness.run(cell, seed, args.seconds, False, sut=SYSTEMS[system]())
+            run = harness.run(cell, seed, args.seconds, False, sut=systems[system]())
             rec = {"workload": cell.name, "reg": cfg["reg"], "system": system, "seed": seed,
                    "units": run.units, "checks": run.checks, "phases": run.phases,
+                   "memory_peak_bytes": run.memory_peak_bytes,
+                   "check_peak_bytes": run.check_peak_bytes,
                    "seconds": time.perf_counter() - t}
             if args.witness:
                 rec["witness"] = witness(cell, seed, torch, reference, telemetry)

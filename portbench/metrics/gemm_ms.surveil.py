@@ -1,4 +1,5 @@
-"""Device milliseconds a batch of the library's GEMM kernels (cuBLAS: Ginv K and W^T D)."""
+"""Device milliseconds a batch of the kernels whose names hold ``gemm``: K4's (W = Ginv K
+and its split passes) and cuBLAS's (W^T D)."""
 
 
 def read(run):

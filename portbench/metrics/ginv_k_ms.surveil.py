@@ -1,5 +1,6 @@
 """Device milliseconds a batch of the kernels launched inside the program's
-``mset2.estimate.ginv_k`` span: the product W = Ginv K (cuBLAS f32)."""
+``mset2.estimate.ginv_k`` span: the product W = Ginv K (K4, the 3xTF32
+tensor-core GEMM, and its split passes)."""
 
 
 def read(run):

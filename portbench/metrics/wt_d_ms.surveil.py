@@ -1,5 +1,5 @@
-"""Device milliseconds a batch of the kernels launched inside the program's
-``mset2.estimate.wt_d`` span: the product X_hat = W^T D (cuBLAS f32)."""
+"""Device milliseconds a unit (a batch of the stream) of the kernels launched inside the
+program's ``mset2.estimate.wt_d`` span: the product X_hat = W^T D (cuBLAS f32)."""
 
 
 def read(run):

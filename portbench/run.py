@@ -58,6 +58,8 @@ def main(argv=None) -> int:
     first, last = stats.quarter_means(run.intervals_ms or [float("nan")])
     print(f"units {run.units}, window {run.window_s:.4f} s; mean ms a unit, first quarter "
           f"{first:.4f}, last quarter {last:.4f}", file=log)
+    print(f"memory peak: window {run.memory_peak_bytes} B, check {run.check_peak_bytes} B",
+          file=log)
     if run.trace is not None:
         print(f"trace: {len(run.trace.ops)} device ops, {len(run.trace.host)} host events",
               file=log)

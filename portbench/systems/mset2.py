@@ -1,9 +1,10 @@
-"""The systems a cell can drive: the port (the system under test) and, in its place,
-the control (the reference computed in the precision below the configuration's).
+"""The ``mset2`` system: MSET2 with a two-sided SPRT, as the port (the system under test)
+and, in its place, the control (the reference computed in the precision below the
+configuration's).
 
 Each gives ``prepare``, ``train``, ``estimate`` and ``sprt`` with one signature, so
-that the loops in ``harness.py`` drive either without knowing which it is. The port
-is imported only when it is built, so that the benchmark's tests and the control
+that the ``stream`` and ``cells`` loops drive either without knowing which it is. The
+port is imported only when it is built, so that the benchmark's tests and the control
 never load it.
 """
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import importlib
 import json
 import sys
+import weakref
 from pathlib import Path
 
 import pytest
@@ -33,7 +34,7 @@ REPO = ROOT.parent
 sys.path[:0] = [str(REPO / "src"), str(REPO)]
 
 from portbench import harness, reference, telemetry  # noqa: E402
-from portbench.system import Control, Port  # noqa: E402
+from portbench.systems.mset2 import Control, Port  # noqa: E402
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 # per loop: the sizes a test run holds (the ratios of the Fig. 8 cell: m = 8 n, 2 m
@@ -54,13 +55,17 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-def cut_cell(loop: str) -> harness.Cell:
-    name = next(w["name"] for w in BENCH["workloads"]
-                if harness.load_cell(w["name"], BENCH).traffic["loop"] == loop)
-    cell = harness.load_cell(name, BENCH)
-    cell.config = dict(cell.config, **CUT[loop])
+def cut(workload: str) -> harness.Cell:
+    """Workload ``workload`` at the size of its loop's ``CUT``."""
+    cell = harness.load_cell(workload, BENCH)
+    cell.config = dict(cell.config, **CUT[cell.traffic["loop"]])
     cell.traffic = dict(cell.traffic, warmup_batches=2, warmup_cells=1, pool=2, assets=2)
     return cell
+
+
+def cut_cell(loop: str) -> harness.Cell:
+    return cut(next(w["name"] for w in BENCH["workloads"]
+                    if harness.load_cell(w["name"], BENCH).traffic["loop"] == loop))
 
 
 def verdict(loop: str, sut, seed: int = 2**32 + 17):
@@ -106,6 +111,17 @@ def test_the_port_is_correct_at_a_cut_size(loop):
     assert ok, shown
 
 
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_each_cell_drives_its_own_systems_port_correct_at_a_cut_size(workload):
+    """No system handed in: the run builds the port of the system that the cell's
+    configuration names, and drives it through the loop that its traffic names."""
+    cell = cut(workload)
+    run = harness.run(cell, 2**31 + 5, SECONDS, False, device="cpu")
+    ok, shown = harness.verdict(run)
+    assert ok, shown
+    assert run.units > 0 and run.checks["checked"] > 0
+
+
 @pytest.mark.parametrize("loop", sorted(CUT))
 def test_the_control_reads_far_above_the_port(loop):
     """At a cut size the errors are smaller than at the cell's own (the card's readings
@@ -131,6 +147,29 @@ def test_each_limit_lies_between_its_readings(workload):
             assert limit < high, (name, limit, high)
             failed.append(name)
     assert failed
+
+
+def test_the_scope_check_holds_one_pool_entrys_reference_at_a_time(monkeypatch):
+    """The check's float64 reference residuals are made entry by entry of the pool, and
+    the last entry's are freed before the next entry's are made: they set the check's
+    peak on the card."""
+    made, real = [], reference.estimate
+
+    def estimate(ref, X):
+        assert all(w() is None for w in made), "an earlier entry's reference is still held"
+        out = real(ref, X)
+        made.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(reference, "estimate", estimate)
+    cell = cut_cell("cells")
+    loop = harness._module(cell.root, "loops", "cells").Loop(
+        harness.Run(cell, 2**31 + 9, False), harness.Device("cpu"), Port(), cell)
+    loop.setup()
+    loop.window(cells=3, samples=(0, 1, 2))
+    out = loop.check()
+    assert len(made) == 3 and out["checked"] == 3  # pool entries 0, 1 and 0 again
+    assert out["resid_gap"] <= cell.limits["limits"]["resid_gap"]
 
 
 @pytest.mark.parametrize("fault", [Unchanged, HalfBatch, Altered], ids=lambda f: f.__name__)

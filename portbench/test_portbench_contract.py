@@ -57,14 +57,16 @@ def test_benchmark_file_keeps_to_the_contract():
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_every_cell_loads_and_reports_what_the_contract_asks(workload):
     cell = harness.load_cell(workload, BENCH)
-    assert cell.traffic["loop"] in harness.LOOPS
+    assert (ROOT / "loops" / f"{cell.traffic['loop']}.py").is_file()
+    assert set(harness.systems(cell)) == {"port", "control"}
     e2e = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
         assert callable(harness.reader(m["name"]))
     assert cell.limits["limits"] and all(v > 0 for v in cell.limits["limits"].values())
-    for key in ("n_signals", "n_memvec", "n_train", "kind", "reg", "precision", "sprt"):
-        assert key in cell.config
+    if cell.system == "mset2":
+        for key in ("n_signals", "n_memvec", "n_train", "kind", "reg", "precision", "sprt"):
+            assert key in cell.config
 
 
 def test_mfu_counts_all_three_products_at_fig8():
@@ -144,7 +146,7 @@ def test_nothing_imports_jax_or_the_jax_package_or_reads_the_old_benchmarks():
         if not f.name.startswith("test_"):
             assert "benchmarks" not in f.read_text(), f
     # by whole top-level name: the port's name begins with the JAX package's
-    assert "repro_torch" in _imports(ROOT / "system.py")
+    assert "repro_torch" in _imports(ROOT / "systems" / "mset2.py")
     assert "repro" not in {m.split(".")[0] for m in ["repro_torch.mset", "repro_torchx"]}
 
 
@@ -152,3 +154,141 @@ def test_forbidden_modules_compares_whole_top_level_names():
     assert harness.forbidden_modules(["repro_torch", "repro_torch.mset", "torch", "jaxtyping"]) == []
     assert harness.forbidden_modules(["repro.mset.sprt", "numpy"]) == ["repro"]
     assert harness.forbidden_modules(["jax", "jaxlib.xla", "flax.linen"]) == ["flax", "jax", "jaxlib"]
+
+
+TOY_LOOP = '''
+"""A toy loop: each unit sums the rows of one input through the system."""
+import time
+
+import torch
+
+
+class Loop:
+    def __init__(self, run, dev, sut, cell):
+        self.run, self.dev, self.sut, self.cfg = run, dev, sut, cell.config
+
+    def setup(self):
+        self.sut.prepare(self.cfg)
+        g = torch.Generator().manual_seed(self.run.seed)
+        self.x = torch.randn(self.cfg["rows"], self.cfg["width"], generator=g, dtype=torch.float64)
+        t = time.perf_counter()
+        self.window(units=2, measure=False)
+        return (time.perf_counter() - t) / 2
+
+    def window(self, seconds=None, units=None, measure=True, samples=()):
+        self.sampled, sub, done = {}, [], []
+        t_start = time.perf_counter()
+        t_end = t_start + seconds if seconds is not None else float("inf")
+        k = 0
+        while (units is None or k < units) and (k == 0 or time.perf_counter() < t_end):
+            sub.append(time.perf_counter())
+            out = self.sut.step(self.x)
+            done.append(time.perf_counter())
+            if k in samples:
+                self.sampled[k] = out
+            k += 1
+        if measure:
+            self.run.units, self.run.unit_obs = k, self.cfg["rows"]
+            self.run.window_s = done[-1] - t_start
+            self.run.latencies_ms = [(d - s) * 1e3 for s, d in zip(sub, done)]
+            self.run.intervals_ms = [(b - a) * 1e3 for a, b in zip(done, done[1:])]
+
+    def free(self):
+        pass
+
+    def check(self):
+        ref = self.x.sum(dim=1)
+        gap = max((float((out - ref).abs().max()) for out in self.sampled.values()), default=0.0)
+        return {"sum_gap": gap, "checked": len(self.sampled)}
+'''
+
+TOY_SYSTEM = '''
+"""A toy system: row sums, exact (the port) and in bfloat16 (the control)."""
+import torch
+
+
+class Port:
+    def prepare(self, cfg):
+        self.width = cfg["width"]
+
+    def step(self, x):
+        return x.sum(dim=1)
+
+
+class Control(Port):
+    def step(self, x):
+        return x.to(torch.bfloat16).sum(dim=1).to(x.dtype)
+
+
+SYSTEMS = {"port": Port, "control": Control}
+'''
+
+
+def _toy_bench(tmp_path: Path) -> tuple[dict, Path]:
+    """A benchmark of one toy cell whose loop and system exist only as files under
+    ``tmp_path/bench``; the metrics' readers are the benchmark's own."""
+    root = tmp_path / "bench"
+    files = {
+        "loops/toy.py": TOY_LOOP,
+        "systems/toy.py": TOY_SYSTEM,
+        "traffic/toy-mix.json": json.dumps({"loop": "toy", "samples": 2}),
+        "configs/toy-config.json": json.dumps({"name": "toy-config", "system": "toy",
+                                               "rows": 256, "width": 512}),
+        "limits/toy-cell.json": json.dumps({"limits": {"sum_gap": 1e-9}}),
+    }
+    for rel, text in files.items():
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+    by_name = {m["name"]: m for m in BENCH["end_to_end"]}
+    bench = {
+        "configs": [{"name": "toy-config", "file": "bench/configs/toy-config.json"}],
+        "workloads": [{"name": "toy-cell", "config": "toy-config", "traffic": "toy-mix",
+                       "chips": 1}],
+        "end_to_end": [dict(by_name[n], workloads=["toy-cell"])
+                       for n in ("setup_s", "obs_per_s", "p95_ms")],
+        "per_layer": [],
+    }
+    return bench, root
+
+
+def test_a_loop_and_a_system_are_found_from_their_files_alone(tmp_path):
+    bench, root = _toy_bench(tmp_path)
+    cell = harness.load_cell("toy-cell", bench, root=root)
+    assert cell.system == "toy" and cell.traffic["loop"] == "toy"
+    run = harness.run(cell, 2**33 + 1, 0.2, False, device="cpu", out_dir=tmp_path / "out")
+    out = harness.result(run, "cpu", 1)
+    assert out["correct"] and run.units > 2 and out["attempted"] == run.units
+    m = out["metrics"]
+    assert m["obs_per_s"]["value"] == run.units * 256 / run.window_s
+    assert m["p95_ms"]["value"] == stats.percentile(run.latencies_ms, 95)
+    assert len(run.latencies_ms) == run.units and m["setup_s"]["value"] == run.setup_s
+    # the control is the toy system's own, by name
+    control = harness.run(cell, 2**33 + 1, 0.2, False, device="cpu",
+                          sut=harness.systems(cell)["control"](), out_dir=tmp_path / "out")
+    ok, shown = harness.verdict(control)
+    assert not ok and shown["sum_gap"]["value"] > 1e-3
+
+
+def test_a_missing_loop_or_system_is_named(tmp_path):
+    bench, root = _toy_bench(tmp_path)
+    (root / "systems" / "toy.py").unlink()
+    cell = harness.load_cell("toy-cell", bench, root=root)
+    with pytest.raises(SystemExit, match="no system 'toy'"):
+        harness.run(cell, 1, 0.1, False, device="cpu")
+
+
+def test_the_harness_names_no_loop_and_no_system():
+    """Loops and systems are found by name, from files: the harness holds no table of
+    them and imports neither a loop's reference nor a system."""
+    assert not hasattr(harness, "LOOPS") and not hasattr(harness, "SYSTEMS")
+    tree = ast.parse((ROOT / "harness.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            imported |= {node.module} | {f"{node.module}.{a.name}" for a in node.names}
+        elif isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+    assert not {m for m in imported
+                if m.startswith(("portbench.reference", "portbench.system", "repro_torch"))}
+    classes = {n.name for n in ast.walk(tree) if isinstance(n, ast.ClassDef)}
+    assert classes == {"Cell", "Device", "Run"}

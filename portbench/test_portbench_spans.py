@@ -49,7 +49,8 @@ def _estimate_trace(prefix="mset2.estimate"):
 
 @pytest.mark.parametrize(
     "metric,per_batch_ms",
-    [("ginv_k_ms.surveil", 3.0), ("wt_d_ms.surveil", 4.0), ("pointwise_ms.surveil", 1.0 + 5.0)],
+    [("ginv_k_ms.surveil", 3.0), ("wt_d_ms.surveil", 4.0), ("pointwise_ms.surveil", 1.0 + 5.0),
+     ("wt_d_ms.scope", 4.0)],
 )
 def test_estimate_span_readers_take_what_their_spans_launched(metric, per_batch_ms):
     assert harness.reader(metric)(_run(_estimate_trace())) == pytest.approx(per_batch_ms)
@@ -57,7 +58,8 @@ def test_estimate_span_readers_take_what_their_spans_launched(metric, per_batch_
     assert _estimate_trace().device_s(r"gemm") * 1e3 == pytest.approx(16.0)
 
 
-@pytest.mark.parametrize("metric", ["ginv_k_ms.surveil", "wt_d_ms.surveil", "pointwise_ms.surveil"])
+@pytest.mark.parametrize("metric", ["ginv_k_ms.surveil", "wt_d_ms.surveil", "pointwise_ms.surveil",
+                                    "wt_d_ms.scope"])
 def test_estimate_span_readers_find_nothing_without_the_programs_spans(metric):
     read = harness.reader(metric)
     assert read(_run(_estimate_trace(prefix="bench.estimate"))) is None  # the parent's trace
@@ -106,3 +108,16 @@ def test_pinv_idle_reader_finds_nothing_without_the_span():
     assert read(_run(_scope_trace(pinv=("bench.eigh pseudo-inverse",)), units=1)) is None
     assert read(_run(None, units=1)) is None
     assert read(_run(_scope_trace(), units=0)) is None
+
+
+def test_k1_reader_takes_both_of_k1s_kernels_a_cell():
+    read = harness.reader("k1_ms.scope")
+    ops = [DeviceOp("void (anonymous namespace)::similarity_tc_kernel<0, true>", 0, 100 * MS, None),
+           DeviceOp("void (anonymous namespace)::split_kernel<float>", 100 * MS, 105 * MS, None),
+           DeviceOp("(anonymous namespace)::gemm_split_t_kernel", 105 * MS, 106 * MS, None),
+           DeviceOp("void symv_lo_direct_kernel", 106 * MS, 200 * MS, None)]
+    t = Trace((0, 200 * MS), ops, [])
+    assert read(_run(t, units=1)) == pytest.approx(105.0)
+    assert read(_run(t, units=2)) == pytest.approx(52.5)
+    assert read(_run(Trace((0, 200 * MS), ops[3:], []), units=1)) is None
+    assert read(_run(None, units=1)) is None and read(_run(t, units=0)) is None
