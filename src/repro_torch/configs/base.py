@@ -152,8 +152,10 @@ class ArchConfig:
             # FFN
             if self.is_moe_layer(li) and not is_enc:
                 ep = dense_ffn(self.moe_d_ff)
-                layer_t += self.n_experts * ep + d * self.n_experts
-                layer_a += self.n_experts_per_tok * ep + d * self.n_experts
+                shared_ff = hybrid_setting(self, "shared_d_ff")
+                shared = dense_ffn(shared_ff) if shared_ff else 0
+                layer_t += self.n_experts * ep + d * self.n_experts + shared
+                layer_a += self.n_experts_per_tok * ep + d * self.n_experts + shared
             elif self.family == "ssm" or (
                 self.attn_period and not self.is_attn_layer(li) and self.d_ff == 0
             ):
@@ -164,6 +166,73 @@ class ArchConfig:
             total += layer_t
             active += layer_a
         return {"total": total, "active": active}
+
+
+@dataclass(frozen=True)
+class HybridMoEConfig(ArchConfig):
+    """An ``ArchConfig`` with the settings of IBM's ``granitemoehybrid`` models (Granite
+    4.0-H) as fields: µP-style multipliers on the embedding, the residual branches, the
+    attention scores and the logits, a shared expert beside the routed ones, routing
+    that drops no slot, and the eps of the SSD block's gated norm. The JAX package has
+    no such model, so no reference config is compared with it field for field; the
+    other configs lack these fields, so that their ``asdict`` stays the reference's.
+    Each default is neutral: the model computes what it computes for a config without
+    the field. The model code reads them through ``hybrid_setting``."""
+
+    embedding_multiplier: float = 1.0  # token rows scaled after the lookup
+    residual_multiplier: float = 1.0  # each branch scaled before its residual add
+    attention_multiplier: float | None = None  # the softmax scale; None: head_dim ** -0.5
+    logits_scaling: float = 1.0  # the logits divided by it
+    shared_d_ff: int = 0  # a shared SwiGLU expert beside the routed ones (0: none)
+    moe_dropless: bool = False  # route every slot (no capacity) through a grouped product
+    ssm_norm_eps: float = 1e-6  # the SSD block's gated RMSNorm
+
+    def published(self) -> dict:
+        """The config under the keys of the model's published ``config.json``, the form
+        that the model's plain reference reads."""
+        return {
+            "hidden_size": self.d_model,
+            "num_hidden_layers": self.n_layers,
+            "layer_types": ["attention" if self.is_attn_layer(i) else "mamba"
+                            for i in range(self.n_layers)],
+            "num_attention_heads": self.n_heads,
+            "num_key_value_heads": self.n_kv_heads,
+            "vocab_size": self.vocab_size,
+            "intermediate_size": self.moe_d_ff,
+            "shared_intermediate_size": self.shared_d_ff,
+            "num_local_experts": self.n_experts,
+            "num_experts_per_tok": self.n_experts_per_tok,
+            "mamba_n_heads": self.ssm_nheads,
+            "mamba_d_head": self.ssm_headdim,
+            "mamba_d_state": self.ssm_state,
+            "mamba_n_groups": self.ssm_ngroups,
+            "mamba_d_conv": self.conv_width,
+            "mamba_expand": self.ssm_expand,
+            "mamba_chunk_size": self.ssd_chunk,
+            "rms_norm_eps": self.ssm_norm_eps,
+            "embedding_multiplier": self.embedding_multiplier,
+            "residual_multiplier": self.residual_multiplier,
+            "attention_multiplier": self.attention_multiplier,
+            "logits_scaling": self.logits_scaling,
+            "position_embedding_type": "nope" if self.pos_emb == "none" else self.pos_emb,
+            "tie_word_embeddings": self.tie_embeddings,
+            "model_type": "granitemoehybrid",
+            "hidden_act": "silu" if self.mlp_type == "swiglu" else self.mlp_type,
+            "normalization_function": self.norm,
+            "attention_bias": False,
+            "mamba_proj_bias": False,
+            "mamba_conv_bias": True,
+        }
+
+
+_HYBRID_NEUTRAL = {f.name: f.default for f in dataclasses.fields(HybridMoEConfig)
+                   if f.name not in ArchConfig.__dataclass_fields__}
+
+
+def hybrid_setting(cfg: ArchConfig, name: str):
+    """``HybridMoEConfig``'s setting ``name`` of any config: its own, or the field's
+    neutral default where the config has no such field."""
+    return getattr(cfg, name, _HYBRID_NEUTRAL[name])
 
 
 @dataclass(frozen=True)

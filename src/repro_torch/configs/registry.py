@@ -17,6 +17,7 @@ _ARCH_MODULES = {
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
 }
 
 ARCH_IDS = list(_ARCH_MODULES)

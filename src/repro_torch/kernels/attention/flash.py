@@ -22,11 +22,17 @@ in place for GQA (no repeated copy). One C entry dispatches on dtype:
   of 8 elements; other bf16 inputs raise ``ValueError`` (nothing is copied).
 - float32 keeps the IEEE float32 FMA kernel on the CUDA cores: the float32 bar of
   2e-5 rules out TF32.
+
+The launch runs as the PyTorch operator ``repro_torch::flash_attention``, registered at
+first use: the profiler links a kernel to the innermost operator that launched it,
+never to a ``record_function`` range alone, so through it K2's device time shows under
+the spans around a call (``lm.attention``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -40,6 +46,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
 _launch_fn = None
+_op = None  # (the Library that registers the operator, kept alive; the operator)
+_op_lock = threading.Lock()  # a second definition would raise
 
 
 def _kernel():
@@ -68,15 +76,62 @@ def check_tma_layout(name, t):
         )
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
+def _operator():
+    """``repro_torch::flash_attention``, registered at first use."""
+    global _op
+    with _op_lock:
+        if _op is None:
+            lib = torch.library.Library("repro_torch", "FRAGMENT")
+            lib.define(
+                "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, float scale) -> Tensor"
+            )
+            lib.impl("flash_attention", _launch, "CUDA")
+            _op = (lib, torch.ops.repro_torch.flash_attention.default)
+    return _op[1]
+
+
+def _launch(q, k, v, causal, scale):
+    """The operator's body: one launch of the kernel into a new output."""
+    global launches
+    B, S, H, hd = q.shape
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0 or H == 0:
+        return out
+    err = _kernel()(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        out.data_ptr(),
+        B,
+        S,
+        H,
+        k.shape[2],
+        hd,
+        *q.stride()[:3],
+        *k.stride()[:3],
+        *v.stride()[:3],
+        *out.stride()[:3],
+        _DTYPE_CODES[q.dtype],
+        int(causal),
+        scale,
+        q.device.index if q.device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None):
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with H % K == 0, CUDA tensors, all float32
     or all bfloat16, each with a contiguous last dim (bfloat16: laid out for TMA, see
-    ``check_tma_layout``). Returns (B, S, H, hd) in q's dtype.
+    ``check_tma_layout``). ``scale`` multiplies the scores (None: hd ** -0.5). Returns
+    (B, S, H, hd) in q's dtype.
 
     The kernel has no backward, so it refuses inputs that need a gradient: its output
     would carry none to them (training runs ``models.layers._sdpa_heads``).
     """
-    global launches
     _build.refuse_dtensors("flash_attention_cuda", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
@@ -111,30 +166,4 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_tma_layout(name, t)
-    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    if B == 0 or S == 0 or H == 0:
-        return out
-    err = _kernel()(
-        q.data_ptr(),
-        k.data_ptr(),
-        v.data_ptr(),
-        out.data_ptr(),
-        B,
-        S,
-        H,
-        K,
-        hd,
-        *q.stride()[:3],
-        *k.stride()[:3],
-        *v.stride()[:3],
-        *out.stride()[:3],
-        _DTYPE_CODES[q.dtype],
-        int(causal),
-        hd**-0.5,
-        q.device.index if q.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed with CUDA error {err}")
-    launches += 1
-    return out
+    return _operator()(q, k, v, bool(causal), float(hd**-0.5 if scale is None else scale))

@@ -14,7 +14,9 @@ does, so that its gradients are summed in float32. Every use casts to the input'
 dtype (``w.to(x.dtype)``, the tensor itself when it is stored in that dtype).
 
 Every ``step`` argument is a hook ``step(name, fn) -> fn()`` through which a caller
-can time the sublayers; the default just calls ``fn``.
+can time the sublayers; the default just calls ``fn``. Each such sublayer of the
+serving path also runs inside a telemetry span (``lm.attention.qkv`` and so on, see
+``_part``), which costs one check while nothing records.
 
 Every ``rules`` argument is a ``distributed.sharding.ShardingRules``; with a mesh the
 parameters and activations are DTensors and each ``rules.constrain`` sits where the
@@ -47,7 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import _telemetry as telemetry
+from repro_torch.configs.base import ArchConfig, hybrid_setting
 from repro_torch.distributed.sharding import lift, local_call, owned
 from repro_torch.kernels.attention.ops import gqa_attention
 
@@ -56,6 +59,13 @@ F32 = torch.float32
 
 def _run(name, fn):
     return fn()
+
+
+def _part(step, span: str, name: str, fn):
+    """``step(name, fn)`` inside the telemetry span ``span``: the span is what the
+    profiler's trace and a session see, the hook's name what a caller's hook sees."""
+    with telemetry.span(span):
+        return step(name, fn)
 
 
 def working_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -158,11 +168,12 @@ class Norm(nn.Module):
         return y.to(x.dtype)
 
 
-def rms_norm_nohead(x, scale):
-    """RMS norm over the last dim, eps 1e-6 (qk-norm)."""
+def rms_norm_nohead(x, scale, eps: float = 1e-6):
+    """RMS norm over the last dim, eps 1e-6 unless given (qk-norm; the SSD block's gated
+    norm passes its config's)."""
     xf = x.float()
     ms = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + 1e-6) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -302,24 +313,29 @@ class Attention(nn.Module):
         it is. cross_decode: attends over all L entries of ``cache``. Returns (out,
         cache). The cache is updated in place, where the reference returns new arrays
         (``dynamic_update_slice``, ``pad_cache``)."""
+        scale = hybrid_setting(self.cfg, "attention_multiplier")
         if mode in ("causal", "bidir"):
             causal = mode == "causal"
-            q, k, v = step("qkv + rope", lambda: self._qkv(x, positions))
+            q, k, v = _part(step, "lm.attention.qkv", "qkv + rope", lambda: self._qkv(x, positions))
             if sharded(rules):
                 q = rules.constrain(q, ("batch", "act_seq", "act_heads", None))
                 k = rules.constrain(k, ("batch", "act_seq", "act_heads", None))
-                out = step(
-                    "attention kernel",
-                    lambda: sharded_attention(self.cfg, q, k, v, causal=causal, rules=rules),
-                )
-                out = rules.constrain(out, ("batch", "act_seq", "act_heads", None))
+
+                def attend():
+                    return sharded_attention(self.cfg, q, k, v, causal=causal, rules=rules)
             else:
-                out = step("attention kernel", lambda: gqa_attention(q, k, v, causal=causal))
+
+                def attend():
+                    return gqa_attention(q, k, v, causal=causal, scale=scale)
+
+            out = _part(step, "lm.attention.flash", "attention kernel", attend)
+            if sharded(rules):
+                out = rules.constrain(out, ("batch", "act_seq", "act_heads", None))
             if causal:
                 # prefill cache layout (B, K, S, hd): seq next to head_dim, as the reference's
                 write_seq(cache["k"], k.transpose(1, 2), 0)
                 write_seq(cache["v"], v.transpose(1, 2), 0)
-            return step("out projection", lambda: self._out(out)), cache
+            return _part(step, "lm.attention.out", "out projection", lambda: self._out(out)), cache
         if mode == "cross":
             # One projection of the encoder output serves the attention and the cache,
             # where the reference projects it twice (models/layers.py:264 and :308).
@@ -331,21 +347,21 @@ class Attention(nn.Module):
             k = kv["ck"]
             if self.cfg.qk_norm:  # prefill's keys are normed, the cached ones not (R9)
                 k = rms_norm_nohead(k, self.k_norm)
-            out = step("cross attention", lambda: _sdpa(q, k, kv["cv"], rules=rules))
+            out = step("cross attention", lambda: _sdpa(q, k, kv["cv"], rules=rules, scale=scale))
             return step("cross out projection", lambda: self._out(out)), cache
         if mode == "cross_decode":
-            out = _sdpa(self._q(x), cache["ck"], cache["cv"], rules=rules)
+            out = _sdpa(self._q(x), cache["ck"], cache["cv"], rules=rules, scale=scale)
             return self._out(out), cache
         if mode == "decode":
             positions = torch.full((1, 1), pos, device=x.device)
-            q, k, v = self._qkv(x, positions)
+            q, k, v = _part(step, "lm.attention.qkv", "qkv + rope", lambda: self._qkv(x, positions))
             write_seq(cache["k"], k.transpose(1, 2), pos)
             write_seq(cache["v"], v.transpose(1, 2), pos)
             if sharded(rules):  # the whole seq-sharded cache, masked past pos
-                out = _sdpa(q, cache["k"], cache["v"], kv_valid_len=pos + 1, rules=rules)
+                out = _sdpa(q, cache["k"], cache["v"], kv_valid_len=pos + 1, rules=rules, scale=scale)
             else:
-                out = _sdpa(q, cache["k"][:, :, : pos + 1], cache["v"][:, :, : pos + 1])
-            return self._out(out), cache
+                out = _sdpa(q, cache["k"][:, :, : pos + 1], cache["v"][:, :, : pos + 1], scale=scale)
+            return _part(step, "lm.attention.out", "out projection", lambda: self._out(out)), cache
         raise ValueError(f"unknown attention mode {mode!r}")
 
     def forward_train(
@@ -452,7 +468,7 @@ def sharded_attention(cfg: ArchConfig, q, k, v, *, causal, rules, kernel=True, q
     if kernel and not rows_split and q.shape[1] == k.shape[1]:
 
         def core(q, k, v):
-            return gqa_attention(q, k, v, causal=causal)
+            return gqa_attention(q, k, v, causal=causal, scale=hybrid_setting(cfg, "attention_multiplier"))
     else:
 
         def core(q, k, v):
@@ -473,9 +489,9 @@ def _sdpa_heads(
     buckets of chunks, bucket b over the keys [0, (b + 1) Sq / nb).
 
     q: (B, Sq, H, hd); k/v: (B, Skv, K, hd). q_offset: absolute position of q[0].
-    Returns (B, Sq, H, hd)."""
+    Returns (B, Sq, H, hd). The scale is ``cfg.attention_multiplier`` where set."""
     B, Sq, H, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = hybrid_setting(cfg, "attention_multiplier") or 1.0 / math.sqrt(hd)
     K = k.shape[2]
     if K != H:
         k = k.repeat_interleave(H // K, dim=2)  # (B, Skv, H, hd)
@@ -517,7 +533,7 @@ def _sdpa_heads(
     return torch.cat(outs, dim=1)
 
 
-def _sdpa(q, k, v, kv_valid_len=None, rules=None):
+def _sdpa(q, k, v, kv_valid_len=None, rules=None, scale=None):
     """The reference's ``_sdpa`` in its cache layout (``layout="seq"``), in plain torch
     as the reference computes it outside any Pallas kernel: scores in the working dtype
     then float32, float32 softmax, weights cast back before P·V. It serves decode,
@@ -525,13 +541,14 @@ def _sdpa(q, k, v, kv_valid_len=None, rules=None):
     does not apply). q: (B, Sq, H, hd); k/v: (B, K, L, hd), the cache layout, hold the L
     keys attended to; entries at or past ``kv_valid_len`` are masked with -1e30, which
     add exactly 0 (the reference's decode; the mesh-free decode slices them off). On a
-    mesh it runs as ``_sdpa_seq_sharded``."""
+    mesh it runs as ``_sdpa_seq_sharded``. ``scale`` multiplies the scores (None:
+    hd ** -0.5)."""
     if sharded(rules):
-        return _sdpa_seq_sharded(q, k, v, kv_valid_len, rules)
+        return _sdpa_seq_sharded(q, k, v, kv_valid_len, rules, scale)
     B, Sq, H, hd = q.shape
     K = k.shape[1]
     qg = q.reshape(B, Sq, K, H // K, hd)
-    s = torch.einsum("bqkgh,bksh->bkgqs", qg, k).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bqkgh,bksh->bkgqs", qg, k).float() * (scale or 1.0 / math.sqrt(hd))
     if kv_valid_len is not None:
         s = torch.where(torch.arange(k.shape[2], device=q.device) < kv_valid_len, s, -1e30)
     w = torch.softmax(s, dim=-1).to(q.dtype)
@@ -539,7 +556,7 @@ def _sdpa(q, k, v, kv_valid_len=None, rules=None):
     return o.reshape(B, Sq, H, hd)
 
 
-def _sdpa_seq_sharded(q, k, v, kv_valid_len, rules):
+def _sdpa_seq_sharded(q, k, v, kv_valid_len, rules, scale=None):
     """``_sdpa`` on DTensors through ``local_call``, k and v kept sequence-sharded as
     the cache is (``cache_seq``): the reference's two-pass partial reduction. Each rank
     scores its batch rows' queries (all heads) against the keys it holds; the softmax's
@@ -552,7 +569,9 @@ def _sdpa_seq_sharded(q, k, v, kv_valid_len, rules):
     k, v = rules.constrain(k, cache), rules.constrain(v, cache)
     split = [i for i, p in enumerate(k.placements) if p == Shard(2) and mesh.shape[i] > 1]
     if not split:
-        return local_call(lambda q, k, v: _sdpa(q, k, v, kv_valid_len), (q.placements,), q, k, v)
+        return local_call(
+            lambda q, k, v: _sdpa(q, k, v, kv_valid_len, scale=scale), (q.placements,), q, k, v
+        )
     B, Sq, H, hd = q.shape
     lo, _ = owned(k.shape[2], mesh, k.placements, 2)
     s_pl = tuple(Shard(4) if i in split else p for i, p in enumerate(q.placements))
@@ -563,7 +582,7 @@ def _sdpa_seq_sharded(q, k, v, kv_valid_len, rules):
     def scores(q, k):
         K, L = k.shape[1], k.shape[2]
         qg = q.reshape(q.shape[0], Sq, K, H // K, hd)
-        s = torch.einsum("bqkgh,bksh->bkgqs", qg, k).float() * (1.0 / math.sqrt(hd))
+        s = torch.einsum("bqkgh,bksh->bkgqs", qg, k).float() * (scale or 1.0 / math.sqrt(hd))
         if kv_valid_len is not None:
             s = torch.where(torch.arange(lo, lo + L, device=q.device) < kv_valid_len, s, -1e30)
         return s
@@ -629,7 +648,8 @@ class MLP(nn.Module):
 class Embed(nn.Module):
     """``init_embed``/``embed_tokens``/``unembed``: token rows, cast to the working
     dtype after the gather, and an output head (the transposed token table when
-    embeddings are tied)."""
+    embeddings are tied). A config's ``embedding_multiplier`` scales the rows and its
+    ``logits_scaling`` divides the logits, each in the working dtype, where not 1."""
 
     AXES = {"tok": ("vocab", "embed"), "unembed": ("embed", "vocab")}
 
@@ -637,6 +657,8 @@ class Embed(nn.Module):
         super().__init__()
         self.tie = cfg.tie_embeddings
         self.dtype = dt = working_dtype(cfg)
+        self.multiplier = hybrid_setting(cfg, "embedding_multiplier")
+        self.logits_scaling = hybrid_setting(cfg, "logits_scaling")
         self.tok = _param((cfg.vocab_size, cfg.d_model), dt, device)
         if not cfg.tie_embeddings:
             self.unembed = _param((cfg.d_model, cfg.vocab_size), dt, device)
@@ -653,7 +675,7 @@ class Embed(nn.Module):
         member gives the rows it holds and zeros elsewhere, a partial sum that the
         constraint of the reference's ``embed_tokens`` reduces."""
         if not sharded(rules):
-            return self.tok[tokens].to(self.dtype)
+            return _times(self.tok[tokens].to(self.dtype), self.multiplier)
         mesh = rules.mesh
         tokens = rules.constrain(tokens, ("batch",) + (None,) * (tokens.dim() - 1))
         table_pl = rules.placements_for(("vocab", None), self.tok.shape)
@@ -670,10 +692,16 @@ class Embed(nn.Module):
 
         table = self.tok.redistribute(mesh, table_pl)
         x = local_call(lookup, (tuple(out_pl),), tokens, table)
-        return rules.constrain(x, ("batch", "act_seq", "act_embed"))
+        return _times(rules.constrain(x, ("batch", "act_seq", "act_embed")), self.multiplier)
 
     def logits(self, x, rules=None):
         w = self.tok.T if self.tie else self.unembed
         if not sharded(rules):
-            return x @ w.to(x.dtype)
-        return rules.constrain(column_parallel(x, w), ("batch", "act_seq", "act_vocab"))
+            return _times(x @ w.to(x.dtype), 1.0 / self.logits_scaling)
+        out = rules.constrain(column_parallel(x, w), ("batch", "act_seq", "act_vocab"))
+        return _times(out, 1.0 / self.logits_scaling)
+
+
+def _times(x, c: float):
+    """x * c, or x itself where c is 1 (no extra pass for the configs without one)."""
+    return x if c == 1.0 else x * c

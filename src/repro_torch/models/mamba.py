@@ -25,10 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import Replicate
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, hybrid_setting
 from repro_torch.distributed.sharding import local_call
 from repro_torch.models.layers import (
     _param,
+    _part,
     _run,
     column_parallel,
     constrain,
@@ -172,9 +173,9 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run, rules=None
     A = -torch.exp(p["A_log"])
 
     if sharded(rules):
-        zxbcdt = step("in_proj", lambda: column_parallel(x, p["w_in"]))
+        zxbcdt = _part(step, "lm.mamba.in_proj", "in_proj", lambda: column_parallel(x, p["w_in"]))
     else:
-        zxbcdt = step("in_proj", lambda: x @ p["w_in"].to(dt_m))
+        zxbcdt = _part(step, "lm.mamba.in_proj", "in_proj", lambda: x @ p["w_in"].to(dt_m))
     zxbcdt = constrain(rules, zxbcdt, ("batch", "act_seq", "act_mlp"))
     if sharded(rules):
         # (z | xbc | dt) gathered along model once: DTensor slices a sharded dim across
@@ -210,7 +211,7 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run, rules=None
         y = (Ch[..., None] * state).sum(2) if on_mesh else torch.einsum("bhn,bhnp->bhp", Ch, state)
         y = y + p["D"].float()[None, :, None] * xh
         y = y.reshape(-1, 1, din).to(dt_m)
-        y = rms_norm_nohead(y * F.silu(z.float()).to(dt_m), p["norm"])
+        y = rms_norm_nohead(y * F.silu(z.float()).to(dt_m), p["norm"], hybrid_setting(cfg, "ssm_norm_eps"))
         write_all(cache["conv"], window[:, 1:, :])
         write_all(cache["state"], state)
         out = row_parallel(y, p["w_out"]) if on_mesh else y @ p["w_out"].to(dt_m)
@@ -223,9 +224,9 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run, rules=None
             local = lambda x, w, b: _causal_conv(cfg, {"conv_w": w, "conv_b": b}, x)
             return local_call(local, (xbc.placements,), xbc, p["conv_w"], p["conv_b"])
 
-        xbc_c = step("conv", conv)
+        xbc_c = _part(step, "lm.mamba.conv", "conv", conv)
     else:
-        xbc_c = step("conv", lambda: _causal_conv(cfg, p, xbc))
+        xbc_c = _part(step, "lm.mamba.conv", "conv", lambda: _causal_conv(cfg, p, xbc))
     B_, S_ = xbc_c.shape[:2]
     xh = xbc_c[..., :din].reshape(B_, S_, H, Pd)
     Bm = xbc_c[..., din : din + G * N].reshape(B_, S_, G, N)
@@ -238,18 +239,18 @@ def apply_ssd(cfg: ArchConfig, p, x, cache=None, pos=None, step=_run, rules=None
         dtv = F.softplus(dtr.float() + p["dt_bias"][None, None])
         return ssd_chunked(cfg, xh, dtv, A, Bm, Cm)
 
-    y, final_state = step("SSD", scan)
+    y, final_state = _part(step, "lm.mamba.ssd", "SSD", scan)
 
     def gate_norm():
         yd = y.to(dt_m) + p["D"].to(dt_m)[None, None, :, None] * xh
         yd = yd.reshape(B_, S_, din)
-        return rms_norm_nohead(yd * F.silu(z.float()).to(dt_m), p["norm"])
+        return rms_norm_nohead(yd * F.silu(z.float()).to(dt_m), p["norm"], hybrid_setting(cfg, "ssm_norm_eps"))
 
-    yn = step("gate + norm", gate_norm)
+    yn = _part(step, "lm.mamba.gate_norm", "gate + norm", gate_norm)
     if sharded(rules):
-        out = step("out_proj", lambda: row_parallel(yn, p["w_out"]))
+        out = _part(step, "lm.mamba.out_proj", "out_proj", lambda: row_parallel(yn, p["w_out"]))
     else:
-        out = step("out_proj", lambda: yn @ p["w_out"].to(dt_m))
+        out = _part(step, "lm.mamba.out_proj", "out_proj", lambda: yn @ p["w_out"].to(dt_m))
     if cache is not None:
         write_all(cache["conv"], xbc[:, -(W - 1) :, :])
         write_all(cache["state"], final_state)

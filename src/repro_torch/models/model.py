@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import _telemetry as telemetry
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from torch.distributed.tensor import DTensor
@@ -122,9 +123,10 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name} has no encoder: prefill takes no {given[0]}=")
         if cache is None:
             cache = self.init_cache(*tokens.shape)
-        return transformer.forward_prefill(
-            self, tokens, cache, step, frames=frames, src_tokens=src_tokens
-        )
+        with telemetry.span("lm.prefill"):
+            return transformer.forward_prefill(
+                self, tokens, cache, step, frames=frames, src_tokens=src_tokens
+            )
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos: int):
@@ -290,11 +292,45 @@ class Model(nn.Module):
         return cls(cfg, device, trainable, ep_size).load_numpy(params)
 
 
+_REFERENCE_NAMES = {  # the port's leaf -> the plain reference's (layer part, key)
+    "norm1.scale": (None, "input_norm"),
+    "norm2.scale": (None, "post_norm"),
+    **{f"mixer.{a}": ("mamba", b) for a, b in (
+        ("w_in", "in_proj"), ("conv_w", "conv_w"), ("conv_b", "conv_b"), ("A_log", "A_log"),
+        ("D", "D"), ("dt_bias", "dt_bias"), ("norm", "norm"), ("w_out", "out_proj"))},
+    **{f"mixer.w{a}": ("attention", a) for a in "qkvo"},
+    "ffn.router": ("moe", "router"),
+    **{f"ffn.w_{a}": ("moe", a) for a in ("up", "gate", "down")},
+    **{f"ffn.shared_{a}": ("shared", a) for a in ("up", "gate", "down")},
+}
+
+
+def from_reference(cfg: ArchConfig, params: dict) -> Model:
+    """A serving model of ``cfg`` whose parameters are the tensors of ``params``, weights
+    in the layout of the model's plain reference (``portbench/reference_granite.py``,
+    the published one),
+    viewed in the port's shapes where they are stored in the port's dtypes (copied and
+    cast where not), on their device."""
+    model = Model(cfg, "meta")
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            part, key = _REFERENCE_NAMES[rest]
+            layer = params["layers"][int(i)]
+            src = layer[key] if part is None else layer[part][key]
+        else:
+            src = params["embed" if owner == "embed" else "norm"]
+        t = src.view(p.shape).to(p.dtype)
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(t, requires_grad=False))
+    return model
+
+
 def _stack(cfg: ArchConfig, program: list[dict], n_layers: int, device, ep_size) -> nn.ModuleList:
     """The layers of one stack in execution order: layer i runs ``program[i % P]``."""
     P = len(program)
     return nn.ModuleList(
-        transformer.Block(cfg, program[i % P], device, ep_size) for i in range(n_layers)
+        transformer.Block(cfg, program[i % P], device, ep_size, i) for i in range(n_layers)
     )
 
 

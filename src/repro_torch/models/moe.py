@@ -17,6 +17,19 @@ Two dispatch paths, as in the reference:
 Experts are padded to a multiple of the model-axis size when necessary
 (``padded_experts``; granite-moe: 40 -> 48); the router never selects padded experts.
 
+A config with ``moe_dropless`` (granite-4.0-h) takes a third path without a mesh,
+``_moe_dropless``: the (token, slot) pairs sorted by expert and every expert run over
+its own rows in one grouped product (``torch._grouped_mm``, bfloat16) or a loop over
+the experts, so no slot is dropped and no (E, C) buffer is padded. A config with
+``shared_d_ff`` adds a shared SwiGLU expert's output, computed for every token, to the
+routed experts'. Every other config keeps the paths above as they were.
+
+Without a mesh each step runs inside a telemetry span (``lm.moe.route``,
+``.dispatch``, ``.experts``, ``.shared``, ``.combine``), and an open session counts
+``moe_routed_slots_total{layer}`` and ``moe_dropped_slots_total`` (on the card, read
+at export) and sets the gauge ``moe_expert_load_max{layer}``, the busiest expert's
+slots over the mean (a read of the device, in a session only).
+
 Two orders are fixed where PyTorch promises none, so that the port gives the
 reference's bits and one run on the card gives the same tokens as the next:
 
@@ -38,9 +51,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import Partial, Replicate, Shard
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import _telemetry as telemetry
+from repro_torch.configs.base import ArchConfig, hybrid_setting
 from repro_torch.distributed.sharding import local_call
-from repro_torch.models.layers import _param, _run, dense_init_, working_dtype
+from repro_torch.models.layers import _param, _part, _run, dense_init_, working_dtype
 
 F32 = torch.float32
 
@@ -52,17 +66,48 @@ def padded_experts(cfg: ArchConfig, ep_size: Optional[int]) -> int:
     return e
 
 
-def _expert_ffn(mlp_type: str, p, xg):
-    """xg: (E, C, d) -> (E, C, d) through each expert's FFN (``p``: w_up, w_down and,
-    for swiglu, w_gate, each stacked over E)."""
-    h = torch.bmm(xg, p["w_up"].to(xg.dtype))
+def _ffn(mlp_type: str, mm, w_up, w_gate, w_down, x):
+    """The FFN of x through ``mm(x, w)`` for each weight: swiglu, relu² or gelu."""
+    h = mm(x, w_up)
     if mlp_type == "swiglu":
-        h = F.silu(torch.bmm(xg, p["w_gate"].to(xg.dtype))) * h
+        h = F.silu(mm(x, w_gate)) * h
     elif mlp_type == "relu2":
         h = F.relu(h).square()
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.bmm(h, p["w_down"].to(h.dtype))
+    return mm(h, w_down)
+
+
+def _weights(p, prefix="w_"):
+    return p[prefix + "up"], p.get(prefix + "gate"), p[prefix + "down"]
+
+
+def _expert_ffn(mlp_type: str, p, xg):
+    """xg: (E, C, d) -> (E, C, d) through each expert's FFN (``p``: w_up, w_down and,
+    for swiglu, w_gate, each stacked over E)."""
+    return _ffn(mlp_type, lambda a, w: torch.bmm(a, w.to(a.dtype)), *_weights(p), xg)
+
+
+def _expert_rows(mlp_type: str, p, xs, offs):
+    """xs: (N, d), rows sorted by expert, expert e's rows ending at offs[e] (int32,
+    (E,)) -> (N, d) through each row's expert. bfloat16 runs one grouped product a
+    weight (``torch._grouped_mm``), anything else a loop over the experts, which reads
+    the offsets back to the host."""
+    w = _weights(p)
+    if xs.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        return _ffn(mlp_type, lambda a, w: torch._grouped_mm(a, w.to(a.dtype), offs=offs), *w, xs)
+    ends = offs.tolist()
+    outs = []
+    for e, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)):
+        mm = lambda a, w: a @ w[e].to(a.dtype)  # noqa: E731
+        outs.append(_ffn(mlp_type, mm, *w, xs[lo:hi]))
+    return torch.cat(outs)
+
+
+def _shared_expert(cfg: ArchConfig, p, x):
+    """The shared expert (``shared_up``, ``shared_gate``, ``shared_down``) over every
+    token of x (..., d)."""
+    return _ffn(cfg.mlp_type, lambda a, w: a @ w.to(a.dtype), *_weights(p, "shared_"), x)
 
 
 def _route(cfg: ArchConfig, logits):
@@ -137,18 +182,62 @@ def _combine(yg, slot, top_i, T: int):
     return y
 
 
+def _routed(cfg: ArchConfig, router, xf, step=_run):
+    """The router's top k for xf (T, d): (expert ids (T, k), weights, aux)."""
+    return _part(step, "lm.moe.route", "router + top-k", lambda: _route(cfg, xf @ router.to(xf.dtype)))
+
+
 def _dispatch(cfg: ArchConfig, router, xf, E: int, C: int, step=_run):
     """Route xf (T, d) and gather the (E, C, d) buffer: (xg, w, slot, top_i, aux)."""
     T, d = xf.shape
-    top_i, top_w, aux = step("router + top-k", lambda: _route(cfg, xf @ router.to(xf.dtype)))
+    top_i, top_w, aux = _routed(cfg, router, xf, step)
 
     def dispatch():
         idx, w, slot = _group(top_i.reshape(-1), top_w.reshape(-1), T, E, C)
         xg = torch.cat([xf, xf.new_zeros(1, d)])[idx]  # (E, C, d)
         return xg, w, slot
 
-    xg, w, slot = step("group + gather", dispatch)
+    xg, w, slot = _part(step, "lm.moe.dispatch", "group + gather", dispatch)
     return xg, w, slot, top_i, aux
+
+
+def _moe_dropless(cfg: ArchConfig, p, xf, step=_run):
+    """Every (token, slot) pair through its expert: the T·k pairs sorted by expert
+    (stably, so each expert's rows stay in token order), gathered, run through
+    ``_expert_rows`` and weighted, and each token's k rows summed by ``_combine``.
+    xf (T, d) -> (y (T, d), aux, expert offsets (E,) int32)."""
+    T, d = xf.shape
+    E, k = p["w_up"].shape[0], cfg.n_experts_per_tok
+    top_i, top_w, aux = _routed(cfg, p["router"], xf, step)
+
+    def dispatch():
+        flat = top_i.reshape(-1)
+        order = torch.argsort(flat, stable=True)  # (T·k,): pairs in expert order
+        experts = torch.arange(1, E + 1, device=flat.device)
+        offs = torch.searchsorted(flat[order], experts, right=False).to(torch.int32)
+        slot = torch.empty_like(order)
+        slot[order] = torch.arange(T * k, device=order.device)  # each pair's sorted row
+        return xf[order // k], order, offs, slot
+
+    xs, order, offs, slot = _part(step, "lm.moe.dispatch", "group + gather", dispatch)
+    ys = _part(step, "lm.moe.experts", "expert FFNs", lambda: _expert_rows(cfg.mlp_type, p, xs, offs))
+
+    def combine():
+        weighted = ys * top_w.reshape(-1)[order, None].to(ys.dtype)
+        return _combine(weighted, slot, top_i, T)
+
+    return _part(step, "lm.moe.combine", "combine", combine), aux, offs
+
+
+def _count(layer, T: int, k: int, E: int, device, load, dropped=None):
+    """The MoE counters of the open session: the layer's routed slots, the dropped
+    slots (``dropped``, a device count, or none), and the gauge of the busiest expert's
+    slots over the mean (``load``: each expert's slots, (E,))."""
+    telemetry.counter("moe_routed_slots_total", T * k, layer=layer)
+    dropped_total = telemetry.device_counter("moe_dropped_slots_total", device)
+    if dropped is not None:
+        dropped_total += dropped
+    telemetry.gauge("moe_expert_load_max", float(load.max()) * E / (T * k), layer=layer)
 
 
 def _weighted_combine(yg, w, slot, top_i):
@@ -159,24 +248,43 @@ def _weighted_combine(yg, w, slot, top_i):
     return _combine(F.pad(weighted, (0, 0, 0, 1)), slot, top_i, top_i.shape[0])
 
 
-def apply_moe(cfg: ArchConfig, p, x, step=_run, rules=None, impl: Optional[str] = None):
+def apply_moe(
+    cfg: ArchConfig, p, x, step=_run, rules=None, impl: Optional[str] = None, layer=None
+):
     """The reference's ``apply_moe``: ``_moe_ep`` when ``impl`` (default
-    ``cfg.moe_impl``) is "ep" and ``rules`` has a mesh, the gather path otherwise.
-    x: (B, S, d) -> (y (B, S, d), aux). ``p``: router (d, E_real) and the expert
-    stacks, E = w_up.shape[0] (padded)."""
+    ``cfg.moe_impl``) is "ep" and ``rules`` has a mesh, the gather path otherwise, or
+    without a mesh ``_moe_dropless`` where the config asks for it; plus the shared
+    expert where the config has one. x: (B, S, d) -> (y (B, S, d), aux). ``p``: router
+    (d, E_real) and the expert stacks, E = w_up.shape[0] (padded). ``layer`` labels the
+    session's counters."""
     impl = impl or cfg.moe_impl
+    dropless, shared = hybrid_setting(cfg, "moe_dropless"), hybrid_setting(cfg, "shared_d_ff")
     if rules is not None and rules.mesh is not None:
+        if dropless or shared:
+            raise ValueError(f"{cfg.name}: dropless routing and a shared expert run without a mesh")
         if impl == "ep":
             return _moe_ep(cfg, p, x, rules)
         return _moe_gather_sharded(cfg, p, x, rules)
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    E = p["w_up"].shape[0]
-    xg, w, slot, top_i, aux = _dispatch(cfg, p["router"], xf, E, capacity(cfg, T), step)
-    yg = step("expert FFNs", lambda: _expert_ffn(cfg.mlp_type, p, xg))
-    y = step("combine", lambda: _weighted_combine(yg, w, slot, top_i))
-    return y.view(B, S, d), aux
+    E, k = p["w_up"].shape[0], cfg.n_experts_per_tok
+    if dropless:
+        y, aux, offs = _moe_dropless(cfg, p, xf, step)
+        if telemetry.active() is not None:
+            _count(layer, T, k, E, x.device, torch.diff(offs, prepend=offs.new_zeros(1)))
+    else:
+        C = capacity(cfg, T)
+        xg, w, slot, top_i, aux = _dispatch(cfg, p["router"], xf, E, C, step)
+        yg = _part(step, "lm.moe.experts", "expert FFNs", lambda: _expert_ffn(cfg.mlp_type, p, xg))
+        y = _part(step, "lm.moe.combine", "combine", lambda: _weighted_combine(yg, w, slot, top_i))
+        if telemetry.active() is not None:
+            load = _one_hot(top_i.reshape(-1), E).sum(0)
+            _count(layer, T, k, E, x.device, load, dropped=(slot == E * C).sum())
+    y = y.view(B, S, d)
+    if shared:
+        y = y + _part(step, "lm.moe.shared", "shared expert", lambda: _shared_expert(cfg, p, x))
+    return y, aux
 
 
 def _moe_gather_sharded(cfg: ArchConfig, p, x, rules):
@@ -264,18 +372,23 @@ def _moe_ep(cfg: ArchConfig, p, x, rules):
 class MoE(nn.Module):
     """``init_moe``'s parameters: router (d, E_real), w_up and w_gate (E, d, ff), w_down
     (E, ff, d), E the experts padded to a multiple of ``ep_size``, all in the working
-    dtype (float32 for training)."""
+    dtype (float32 for training); with ``shared_d_ff`` also the shared expert's
+    shared_up and shared_gate (d, shared_d_ff) and shared_down (shared_d_ff, d).
+    ``layer`` (the block's index) labels the session's counters."""
 
     AXES = {
         "router": ("embed", None),
         "w_up": ("experts", "embed", "expert_mlp"),
         "w_down": ("experts", "expert_mlp", "embed"),
         "w_gate": ("experts", "embed", "expert_mlp"),
+        "shared_up": ("embed", "mlp"),
+        "shared_gate": ("embed", "mlp"),
+        "shared_down": ("mlp", "embed"),
     }
 
-    def __init__(self, cfg: ArchConfig, device, ep_size: Optional[int] = None):
+    def __init__(self, cfg: ArchConfig, device, ep_size: Optional[int] = None, layer=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.layer = cfg, layer
         d, ff, dt = cfg.d_model, cfg.moe_d_ff, working_dtype(cfg)
         E = padded_experts(cfg, ep_size)
         self.router = _param((d, cfg.n_experts), dt, device)
@@ -283,12 +396,22 @@ class MoE(nn.Module):
         self.w_down = _param((E, ff, d), dt, device)
         if cfg.mlp_type == "swiglu":
             self.w_gate = _param((E, d, ff), dt, device)
+        shared = hybrid_setting(cfg, "shared_d_ff")
+        if shared:
+            self.shared_up = _param((d, shared), dt, device)
+            self.shared_down = _param((shared, d), dt, device)
+            if cfg.mlp_type == "swiglu":
+                self.shared_gate = _param((d, shared), dt, device)
 
     def reset_parameters(self, generator):
         dense_init_(self.router, generator)
         # in_axis=1 as in init_moe: fan_in is E * d (E * ff for w_down)
         for w in (self.w_up, self.w_down) + ((self.w_gate,) if hasattr(self, "w_gate") else ()):
             dense_init_(w, generator, in_axis=1)
+        for name in ("shared_up", "shared_gate", "shared_down"):
+            if hasattr(self, name):
+                dense_init_(getattr(self, name), generator)
 
     def forward(self, x, step=_run, rules=None, impl: Optional[str] = None):
-        return apply_moe(self.cfg, dict(self.named_parameters()), x, step, rules, impl)
+        p = dict(self.named_parameters())
+        return apply_moe(self.cfg, p, x, step, rules, impl, self.layer)

@@ -18,6 +18,10 @@ which changes memory, not numbers.
 Each function reads the model's ``rules`` (``Model.shard``; no mesh by default) and
 passes them to every block, which constrains its residual stream where the
 reference's ``_apply_block_pos`` does.
+
+The serving path runs inside telemetry spans: ``lm.prefill`` (``Model.prefill``), each
+block's ``lm.attention``, ``lm.mamba`` and ``lm.moe``, and ``lm.head`` (the final norm
+and the logits).
 """
 
 from __future__ import annotations
@@ -29,10 +33,11 @@ from torch import nn
 from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import _telemetry as telemetry
+from repro_torch.configs.base import ArchConfig, hybrid_setting
 from repro_torch.distributed.sharding import lift, local_call, owned
 from repro_torch.models import layers, mamba, moe
-from repro_torch.models.layers import _run, constrain
+from repro_torch.models.layers import _run, _times, constrain
 
 _RESIDUAL = ("batch", "act_seq", "act_embed")
 
@@ -74,10 +79,13 @@ def block_program(cfg: ArchConfig, decoder: bool = True) -> list[dict]:
 class Block(nn.Module):
     """One layer: x + mixer(norm1(x)); in a decoder block of the enc-dec family then
     x + cross(norm_cross(x), encoder output); then x + ffn(norm2(x)) when it has an
-    FFN. The mixer is attention or SSD, the FFN a dense MLP, an MoE or none."""
+    FFN. The mixer is attention or SSD, the FFN a dense MLP, an MoE or none. The
+    mixer's and the FFN's outputs are scaled by ``cfg.residual_multiplier`` before
+    their adds, where it is not 1. ``layer`` is the block's index in its stack."""
 
-    def __init__(self, cfg: ArchConfig, entry: dict, device, ep_size=None):
+    def __init__(self, cfg: ArchConfig, entry: dict, device, ep_size=None, layer=None):
         super().__init__()
+        self.rm = hybrid_setting(cfg, "residual_multiplier")
         self.norm1 = layers.Norm(cfg, cfg.d_model, device)
         self.kind = entry["mixer"]
         if self.kind == "attn":
@@ -94,7 +102,7 @@ class Block(nn.Module):
             if self.ffn_kind == "dense":
                 self.ffn = layers.MLP(cfg, device)
             else:
-                self.ffn = moe.MoE(cfg, device, ep_size)
+                self.ffn = moe.MoE(cfg, device, ep_size, layer)
 
     def forward(
         self,
@@ -113,22 +121,23 @@ class Block(nn.Module):
         the enc-dec family, updated in place; an encoder block takes none. ``enc_out``
         is the encoder's output at prefill."""
         h = step("norms", lambda: self.norm1(x))
-        if mode == "encode":  # every encoder block's mixer is attention
-            out, _ = self.mixer(h, mode="bidir", positions=positions, step=step, rules=rules)
-        elif self.kind == "attn":
-            attn_mode = "causal" if mode == "prefill" else "decode"
-            out, _ = self.mixer(
-                h,
-                mode=attn_mode,
-                positions=positions,
-                cache=cache["attn"],
-                pos=pos,
-                step=step,
-                rules=rules,
-            )
-        else:
-            out, _ = self.mixer(h, cache=cache["ssm"], pos=pos, step=step, rules=rules)
-        x = constrain(rules, x + out, _RESIDUAL)
+        with telemetry.span("lm.mamba" if self.kind == "ssm" else "lm.attention"):
+            if mode == "encode":  # every encoder block's mixer is attention
+                out, _ = self.mixer(h, mode="bidir", positions=positions, step=step, rules=rules)
+            elif self.kind == "attn":
+                attn_mode = "causal" if mode == "prefill" else "decode"
+                out, _ = self.mixer(
+                    h,
+                    mode=attn_mode,
+                    positions=positions,
+                    cache=cache["attn"],
+                    pos=pos,
+                    step=step,
+                    rules=rules,
+                )
+            else:
+                out, _ = self.mixer(h, cache=cache["ssm"], pos=pos, step=step, rules=rules)
+        x = constrain(rules, x + _times(out, self.rm), _RESIDUAL)
         if self.has_cross:
             h = step("norms", lambda: self.norm_cross(x))
             if mode == "decode":
@@ -141,12 +150,14 @@ class Block(nn.Module):
         if self.ffn_kind:
             h = step("norms", lambda: self.norm2(x))
             if self.ffn_kind == "dense":
-                x = x + step("mlp", lambda: self.ffn(h, rules))
+                x = x + _times(step("mlp", lambda: self.ffn(h, rules)), self.rm)
             else:
                 # decode takes the gather path (the reference's moe_impl="gather"), as does
                 # every call without a mesh; on a mesh prefill takes cfg.moe_impl
                 impl = "gather" if mode == "decode" else None
-                x = x + self.ffn(h, step=step, rules=rules, impl=impl)[0]
+                with telemetry.span("lm.moe"):
+                    out = self.ffn(h, step=step, rules=rules, impl=impl)[0]
+                x = x + _times(out, self.rm)
             x = constrain(rules, x, _RESIDUAL)
         return x
 
@@ -165,7 +176,7 @@ class Block(nn.Module):
             )
         else:
             out, _ = self.mixer(h, rules=rules)
-        x = constrain(rules, x + out, _RESIDUAL)
+        x = constrain(rules, x + _times(out, self.rm), _RESIDUAL)
         if self.has_cross:
             h = self.norm_cross(x)
             x = x + self.cross.forward_train(
@@ -173,10 +184,10 @@ class Block(nn.Module):
             )
         aux = x.new_zeros((), dtype=torch.float32)
         if self.ffn_kind == "dense":
-            x = x + self.ffn(self.norm2(x), rules)
+            x = x + _times(self.ffn(self.norm2(x), rules), self.rm)
         elif self.ffn_kind:
             out, aux = self.ffn(self.norm2(x), rules=rules)
-            x = x + out
+            x = x + _times(out, self.rm)
         if self.ffn_kind:
             x = constrain(rules, x, _RESIDUAL)
         return x, aux
@@ -365,8 +376,9 @@ def forward_prefill(model, tokens, cache, step=_run, *, frames=None, src_tokens=
             step=step,
             rules=rules,
         )
-    x = step("norms", lambda: model.final_norm(x[:, -1:, :]))
-    return cache, step("unembed", lambda: model.embed.logits(x, rules))
+    with telemetry.span("lm.head"):
+        x = step("norms", lambda: model.final_norm(x[:, -1:, :]))
+        return cache, step("unembed", lambda: model.embed.logits(x, rules))
 
 
 def decode_step(model, cache, tokens, pos: int):
@@ -378,7 +390,8 @@ def decode_step(model, cache, tokens, pos: int):
     P = len(model.program)
     for i, block in enumerate(model.blocks):
         x = block(x, mode="decode", cache=_layer_cache(cache, i, P), pos=pos, rules=rules)
-    return cache, model.embed.logits(model.final_norm(x), rules)
+    with telemetry.span("lm.head"):
+        return cache, model.embed.logits(model.final_norm(x), rules)
 
 
 # ---------------------------------------------------------------------------

@@ -208,13 +208,13 @@ def _flash_bar(ref, dtype):
     return 1e-5 + 2**-7 * ref.abs()
 
 
-def _check_flash(q, k, v, causal, dtype):
+def _check_flash(q, k, v, causal, dtype, scale=None):
     from repro_torch.kernels import gqa_attention
 
     before = flash_module.launches
-    out = gqa_attention(q, k, v, causal=causal)
+    out = gqa_attention(q, k, v, causal=causal, scale=scale)
     assert flash_module.launches == before + 1
-    ref = gqa_attention(q, k, v, causal=causal, impl="ref").float()
+    ref = gqa_attention(q, k, v, causal=causal, scale=scale, impl="ref").float()
     diff = (out.float() - ref).abs()
     assert bool((diff <= _flash_bar(ref, dtype)).all()), float(diff.max())
 
@@ -241,6 +241,26 @@ def test_flash_kernel_large_logits(cuda, hd, dtype):
     k, v = (torch.randn(2, 200, 2, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
     for causal in (True, False):
         _check_flash(q, k, v, causal, dtype)
+
+
+@pytest.mark.parametrize("scale", [0.0078125, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_a_softmax_scale(cuda, scale, dtype):
+    """granite-4.0-h's 0.0078125 (1 / 128 at head_dim 128, not 128 ** -0.5) and a scale
+    that sharpens the softmax, against the plain version at the same scale; the
+    operator's launches show under a profiler range around the call."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = torch.randn(2, 300, 32, 128, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 300, 8, 128, generator=g, device=cuda).to(dtype) for _ in range(2))
+    for causal in (True, False):
+        _check_flash(q, k, v, causal, dtype, scale=scale)
+    default = flash_module.flash_attention_cuda(q, k, v)
+    assert not torch.equal(flash_module.flash_attention_cuda(q, k, v, scale=scale), default)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        flash_module.flash_attention_cuda(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+    assert any(e.name == "repro_torch::flash_attention" for e in prof.events())
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
@@ -301,7 +321,8 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize(
-    "arch", ["olmoe-1b-7b", "granite-moe-3b-a800m", "mamba2-130m", "jamba-v0.1-52b"]
+    "arch",
+    ["olmoe-1b-7b", "granite-moe-3b-a800m", "mamba2-130m", "jamba-v0.1-52b", "granite-4.0-h-small"],
 )
 def test_families_serve_on_the_card(cuda, arch):
     """One K2 launch a prefill for each attention layer (none for mamba2), and the
@@ -315,6 +336,67 @@ def test_families_serve_on_the_card(cuda, arch):
     assert flash_module.launches == sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
     again = generate(arch, batch=2, prompt_len=40, gen_tokens=4, device=cuda)
     np.testing.assert_array_equal(again.tokens, r.tokens)
+
+
+def test_granite_on_the_card_follows_its_reference(cuda):
+    """granite-4.0-h-small at the smoke size in bfloat16 on the card (K2 at its scale,
+    the grouped expert products): prefill and four decode steps through the cache
+    against the float32 plain reference's forward on the CPU: the norm of each logit
+    vector's difference over the reference's about its mean. bfloat16 puts the port
+    ~0.01 from it at this size on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import from_reference
+    from test_torch_granite import load_reference
+
+    ref = load_reference()
+    cfg = get_config("granite-4.0-h-small", smoke=True)
+    params = ref.init_params(cfg.published(), 9, "cpu", dtype=torch.float32)
+    model = from_reference(cfg, _to(params, cuda))
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(9))
+    cache, logits = model.prefill(toks.to(cuda), model.init_cache(2, 52))
+    seq, fed = [logits[:, -1].float().cpu()], []
+    for i in range(4):
+        fed.append(seq[-1].argmax(-1))
+        cache, logits = model.decode_step(cache, fed[-1][:, None].to(cuda), 48 + i)
+        seq.append(logits[:, -1].float().cpu())
+    want = ref.forward(cfg.published(), params, torch.cat([toks, torch.stack(fed, 1)], 1), last=5)
+    got = torch.stack(seq, 1)
+    rms = (got - want).norm(dim=-1) / (want - want.mean(-1, keepdim=True)).norm(dim=-1)
+    assert float(rms.max()) < 0.05
+
+
+def test_granite_at_published_widths_routes_every_slot(cuda):
+    """granite-4.0-h-small at its published widths, cut to one 10-layer period, built by
+    ``build_model`` and served by ``Model.prefill`` and ``decode_step`` in a telemetry
+    session: each layer routes all T·k slots, none is dropped, and decode follows."""
+    from repro_torch import _telemetry as telemetry
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("granite-4.0-h-small").replace(n_layers=10)
+    model = build_model(cfg, cuda, torch.Generator(device=cuda).manual_seed(3))
+    B, S = 2, 1024
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=cuda)
+    with telemetry.session() as tel:
+        cache, logits = model.prefill(toks, model.init_cache(B, S + 2))
+        for i in range(2):
+            cache, logits = model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], S + i)
+    tel.settle()
+    snap = tel.metrics.snapshot()
+    assert snap["counter"]["moe_dropped_slots_total"][""] == 0
+    routed = snap["counter"]["moe_routed_slots_total"]
+    assert routed == {f"layer={i}": B * S * 10 + 2 * B * 10 for i in range(10)}
+    loads = snap["gauge"]["moe_expert_load_max"]
+    assert len(loads) == 10 and all(v >= 1 for v in loads.values())
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

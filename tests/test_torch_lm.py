@@ -50,9 +50,13 @@ def _t(a):
 # ------------------------------ configs -------------------------------------
 
 
+# the port's archs that the JAX package does not have (tests/test_torch_granite.py)
+PORT_ONLY = ["granite-4.0-h-small"]
+
+
 def test_configs_match_reference():
-    assert ARCH_IDS == JAX_ARCH_IDS
-    for arch in ARCH_IDS:
+    assert JAX_ARCH_IDS == [a for a in ARCH_IDS if a not in PORT_ONLY]
+    for arch in JAX_ARCH_IDS:
         for smoke in (False, True):
             port, ref = get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke)
             assert dataclasses.asdict(port) == dataclasses.asdict(ref), (arch, smoke)
@@ -71,7 +75,7 @@ def test_configs_match_reference():
 
 def test_counts_match_reference():
     assert get_config("minitron-4b").param_counts()["total"] == 4_190_109_696
-    for arch in ARCH_IDS:
+    for arch in JAX_ARCH_IDS:
         for smoke in (False, True):
             port, ref = get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke)
             assert port.param_counts() == ref.param_counts()

@@ -25,6 +25,7 @@ import numpy as np
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.distributed import sharding as jax_sharding
 from repro.distributed.sharding import unbox_axes as jax_unbox_axes
@@ -163,9 +164,28 @@ def _axes_leaves(tree, pkg):
     return _tree.leaves(tree, is_leaf=is_axes)
 
 
+def _own_axes_fit(model):
+    """An arch the JAX package lacks: each leaf's axes are its module's, led by "stack"
+    for a block parameter, one a dim, and each cache leaf's one a dim."""
+    shapes = _tree.leaves(model.tree_like())
+    axes = _axes_leaves(model.param_axes(), "repro_torch")
+    assert len(axes) == len(shapes) and any(a[0] == "stack" for a in axes)
+    assert all(len(a) == len(t.shape) for a, t in zip(axes, shapes))
+    for name, _, s, p in model._tree_leaves():
+        owner, _, leaf = name.rpartition(".")
+        own = model.get_submodule(owner).AXES[leaf]
+        assert len(own) == p.dim() and (s is None or ("stack", *own) in axes), name
+    is_spec = lambda x: isinstance(x, tuple) and isinstance(x[0], tuple)
+    specs = _tree.leaves(model.cache_specs(2, 16), is_leaf=is_spec)
+    cache_axes = _axes_leaves(model.cache_axes(), "repro_torch")
+    assert [len(a) for a in cache_axes] == [len(sp[0]) for sp in specs]
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_and_cache_axes_equal_the_reference_leaf_for_leaf(arch):
     model = Model(get_config(arch, smoke=True), "meta")
+    if arch not in JAX_ARCH_IDS:
+        return _own_axes_fit(model)
     jsb = JStepBuilder(jax_get_config(arch, smoke=True), jax_sharding.make_rules(None))
     _, boxed = jsb.abstract_params()
     ref = _axes_leaves(jax_unbox_axes(boxed), "repro")
@@ -201,8 +221,12 @@ def _local_shapes(shardings, shapes):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_shard_shapes_equal_the_reference(arch, mesh):
     """Every parameter, optimizer-moment and cache leaf's per-device shape (experts
-    padded to the model axis in both), and the optimizer step replicated."""
+    padded to the model axis in both), and the optimizer step replicated. An arch the
+    JAX package lacks: each leaf's per-device shape is its shape divided along the mesh
+    dims that its placements shard (the first rank's, rounded up)."""
     sizes = MESHES[mesh]
+    if arch not in JAX_ARCH_IDS:
+        return _own_shard_shapes(arch, sizes)
     jrules = jax_sharding.make_rules(JaxMesh(sizes))
     jsb = JStepBuilder(jax_get_config(arch, smoke=True), jrules)
     _, boxed = jsb.abstract_params()
@@ -227,6 +251,30 @@ def test_shard_shapes_equal_the_reference(arch, mesh):
         is_spec = lambda x: isinstance(x, tuple) and isinstance(x[0], tuple)
         cache_shapes = [s[0] for s in _tree.leaves(sb.model.cache_specs(32, 64), is_leaf=is_spec)]
         assert _local_shapes(cs, cache_shapes) == ref_cache
+
+
+def _divided(shape, mesh, placements):
+    out = list(shape)
+    for size, p in zip(mesh.shape, placements):
+        if isinstance(p, Shard):
+            out[p.dim] = -(-out[p.dim] // size)
+    return tuple(out)
+
+
+def _own_shard_shapes(arch, sizes):
+    with fake_world(int(np.prod(list(sizes.values())))):
+        dmesh = init_device_mesh("cpu", tuple(sizes.values()), mesh_dim_names=tuple(sizes))
+        sb = StepBuilder(get_config(arch, smoke=True), device="meta", rules=sharding.make_rules(dmesh))
+        ps = _tree.leaves(sb.param_shardings(), is_leaf=sharding.is_sharding)
+        shapes = [t.shape for t in _tree.leaves(sb.model.tree_like())]
+        assert _local_shapes(ps, shapes) == [_divided(s, *sh) for s, sh in zip(shapes, ps)]
+        assert any(_divided(s, *sh) != tuple(s) for s, sh in zip(shapes, ps))
+        opt = sb.opt_shardings(sb.param_shardings())
+        assert opt.step[1] == (Replicate(),) * 2
+        cs = _tree.leaves(sb.cache_shardings(ShapeSpec("c", "decode", 64, 32)), is_leaf=sharding.is_sharding)
+        is_spec = lambda x: isinstance(x, tuple) and isinstance(x[0], tuple)
+        cache_shapes = [s[0] for s in _tree.leaves(sb.model.cache_specs(32, 64), is_leaf=is_spec)]
+        assert _local_shapes(cs, cache_shapes) == [_divided(s, *sh) for s, sh in zip(cache_shapes, cs)]
 
 
 # ------------------------- mesh, catalog, kernels, scoping -------------------------
