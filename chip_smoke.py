@@ -27,7 +27,9 @@ Phases, in the order they run (numbered in the order they were added: 21 runs af
    scope cell: its error at most twice cuBLAS's and never above 1e-2, one TF32
    product's above that bar, the same bits with Ginv's planes given; timed at those
    shapes beside cuBLAS float32 (the plain version) and its bound, with the device time
-   of each of its kernels;
+   of each of its kernels; then X_hat = W^T D (K4 too) on the cell's W at a Fig. 8
+   batch, an A320 batch (75,000 random signals) and a scope cell, held to the same bar
+   and timed alike with D^T's planes given;
 5. the MSET2 path: ContainerStress.run_measured over the "paper" grid and the
    full-width Fig. 8 cell (1024 signals, 8192 memory vectors, 65,536 observations),
    response surface, recommendation over the h100 shapes, SPRT on the full-width
@@ -195,6 +197,12 @@ GEMM_SHAPES = {
     "fig8 batch": (8192, 8192, 8192),
     "a320 batch": (8192, 8192, 1024),
     "scope cell": (8192, 8192, 65536),
+}
+# X_hat = W^T D (K4 too): (b, m, n) observations, memory vectors and signals at the same three
+WT_D_SHAPES = {
+    "fig8 batch": (8192, 8192, 1024),
+    "a320 batch": (1024, 8192, 75000),
+    "scope cell": (65536, 8192, 1024),
 }
 # ragged (m, k, n): off the 128-row tile and the 32-deep K tile
 GEMM_RAGGED = [(1, 1, 1), (33, 1001, 127), (129, 4103, 1000), (1000, 31, 33)]
@@ -512,14 +520,19 @@ def tf32(t):
     return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def gemm_phase(dev, card, gemm_module, Ginv, K):
+def gemm_phase(dev, card, gemm_module, Ginv, K_all, D):
     """Phase 21: K4 (W = Ginv K) against float64 and cuBLAS float32 on the full-width
     cell's own Ginv (at GEMM_REG) and a batch's K, at ragged shapes and on random operands
     of the main path's shapes; then timed at those shapes beside cuBLAS float32 (which is
-    also the plain version) and its bound. Each error is in norm, relative to the float64
-    product's; a third, one TF32 product's (hi.hi with float64 sums, the best any one-product
-    kernel can do), shows that the bar would catch such a kernel on the same operands."""
-    print("== 21. K4, W = Ginv K, against float64 and cuBLAS f32")
+    also the plain version) and its bound. Then X_hat = W^T D, estimate's second product,
+    on the cell's W (Ginv times the K of ``K_all``'s first b observations) at WT_D_SHAPES,
+    with the cell's D where it has the shape's signals and random signals else, held and
+    timed alike with D^T's planes given, as ``estimate`` runs it. Each error is in norm,
+    relative to the float64 product's; a third, one TF32 product's (hi.hi with float64
+    sums, the best any one-product kernel can do), shows that the bar would catch such a
+    kernel on the same operands."""
+    print("== 21. K4, W = Ginv K on the cell's Ginv and ragged, against float64 and cuBLAS f32")
+    K = K_all[:, : GEMM_SHAPES["fig8 batch"][2]].contiguous()
     eps = float(torch.finfo(torch.float32).eps)
 
     def errors(a, b, **kw):
@@ -562,27 +575,34 @@ def gemm_phase(dev, card, gemm_module, Ginv, K):
         b = torch.randn(k, n, generator=g, device=dev)
         # a single product (k = 1) may round to TF32 by chance: no witness there
         held(f"ragged {m}x{k}x{n}", errors(a, b), witness=k > 1)
-    print(f"== 21. K4 at the main path's shapes, and timed (CUDA events; {card})")
-    timings = {}
-    for label, (m, k, n) in GEMM_SHAPES.items():
-        a = torch.randn(m, k, generator=g, device=dev)
-        b = torch.rand(k, n, generator=g, device=dev)  # similarities lie in (0, 1]
-        float64_err = errors(a, b)
-        held(f"{label} {m}x{k}x{n}, randn x rand", float64_err)
+    def timed(label, a, b, given, float64_err):
+        """K4's a @ b as ``estimate`` runs it, with the planes it keeps (``given``), and
+        splitting every operand, beside cuBLAS float32 (also the plain version) and the
+        bound; device time by kernel of the call that splits every operand."""
+        (m, k), n = a.shape, b.shape[1]
         iters = max(2, int(2e13 // (m * k * n)))
-        planes = gemm_module.split_rows(a)
-        ms = cuda_ms(lambda: gemm_module.gemm_cuda(a, b, planes), iters)  # as estimate runs
-        split_a_ms = cuda_ms(lambda: gemm_module.gemm_cuda(a, b), iters)
+        ms = cuda_ms(lambda: gemm_module.gemm_cuda(a, b, **given), iters)
+        split_all_ms = cuda_ms(lambda: gemm_module.gemm_cuda(a, b), iters)
         library_ms = cuda_ms(lambda: a @ b, iters)
         bound_ms = 2.0 * m * k * n / TF32_FLOPS * 1e3
         device_ms = {
             re.sub(r"^(void )?\(anonymous namespace\)::|\(.*$", "", name): t
             for name, t in device_ms_by_kernel(lambda: gemm_module.gemm_cuda(a, b)).items()
         }
-        timings[label] = dict(
+        print(
+            f"  {label}: K4 {ms:.3f} ms with {', '.join(given)} given ({split_all_ms:.3f} ms "
+            f"splitting every operand), cuBLAS f32 (the plain version) {library_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms (operations; three TF32 products at peak "
+            f"{3 * bound_ms:.3f} ms), K4 at {3 * bound_ms / ms:.1%} of the 3xTF32 peak"
+        )
+        print(
+            "    device time by kernel (torch.profiler): "
+            + (", ".join(f"{k_} {v:.3f} ms" for k_, v in device_ms.items()) or "not measured")
+        )
+        return dict(
             shape=[m, k, n],
             ms=ms,
-            split_a_ms=split_a_ms,
+            split_all_ms=split_all_ms,
             plain_ms=library_ms,
             library_ms=library_ms,
             bound_ms=bound_ms,
@@ -591,19 +611,32 @@ def gemm_phase(dev, card, gemm_module, Ginv, K):
             device_ms=device_ms,
             float64_err=float64_err,
         )
-        print(
-            f"  {label} {m}x{k}x{n}: K4 {ms:.3f} ms with a's planes given ({split_a_ms:.3f} ms "
-            f"splitting a too), cuBLAS f32 (the plain version) {library_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms (operations; three TF32 products at peak {3 * bound_ms:.3f} "
-            f"ms), K4 at {3 * bound_ms / ms:.1%} of the 3xTF32 peak"
-        )
-        print(
-            "    device time by kernel (torch.profiler): "
-            + (", ".join(f"{k_} {v:.3f} ms" for k_, v in device_ms.items()) or "not measured")
-        )
+
+    print(f"== 21. K4 at the main path's shapes, and timed (CUDA events; {card})")
+    timings = {}
+    for label, (m, k, n) in GEMM_SHAPES.items():
+        a = torch.randn(m, k, generator=g, device=dev)
+        b = torch.rand(k, n, generator=g, device=dev)  # similarities lie in (0, 1]
+        float64_err = errors(a, b)
+        held(f"{label} {m}x{k}x{n}, randn x rand", float64_err)
+        planes = gemm_module.split_rows(a)
+        timings[label] = timed(f"{label} {m}x{k}x{n}", a, b, dict(a_split=planes), float64_err)
         del a, b, planes
         torch.cuda.empty_cache()
-    return dict(float64_err=cell, timings=timings)
+    del K
+    print(f"== 21. K4, X_hat = W^T D on the cell's W, against float64 and cuBLAS f32 ({card})")
+    wt_d = {}
+    for label, (b, m, n) in WT_D_SHAPES.items():
+        W = gemm_module.gemm_cuda(Ginv, K_all[:, :b].contiguous())
+        Dn = D if D.shape == (m, n) else torch.randn(m, n, generator=g, device=dev)
+        planes = gemm_module.split_cols(Dn)
+        float64_err = errors(W.T, Dn, b_split=planes)
+        text = f"{label} W^T {b}x{m} . D {m}x{n}"
+        held(text, float64_err)
+        wt_d[label] = timed(text, W.T, Dn, dict(b_split=planes), float64_err)
+        del W, Dn, planes
+        torch.cuda.empty_cache()
+    return dict(float64_err=cell, timings=timings, wt_d=wt_d)
 
 
 def step_timer():
@@ -3179,9 +3212,9 @@ def main():
             f"(kernel bar: plain + {TOL:g})"
         )
         expect(e["kernel"] <= e["plain"] + TOL, f"kernel far from float64 on the cell's {kind_}")
-    # phase 21's operands: the cell's Ginv and the K of a Fig. 8 batch (8,192 observations)
-    cell_Ginv = cell_model.Ginv
-    cell_K = similarity_cuda(cell_model.D, Xs[: GEMM_SHAPES["fig8 batch"][2]], cell_model.gamma)
+    # phase 21's operands: the cell's Ginv and D, and the K of its surveillance observations
+    cell_Ginv, cell_D = cell_model.Ginv, cell_model.D
+    cell_K = similarity_cuda(cell_model.D, Xs, cell_model.gamma)
     del cell_model, Xs
     torch.cuda.empty_cache()
 
@@ -3238,8 +3271,8 @@ def main():
     del D, X
 
     # ------------------------------------------------------------ 21. K4
-    gemm_checks = gemm_phase(dev, card, gemm_module, cell_Ginv, cell_K)
-    del cell_Ginv, cell_K
+    gemm_checks = gemm_phase(dev, card, gemm_module, cell_Ginv, cell_K, cell_D)
+    del cell_Ginv, cell_K, cell_D
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 5. main path
@@ -3475,7 +3508,8 @@ def main():
             "name": "gemm",
             "route": "cuda",
             "source": "src/repro_torch/kernels/gemm/csrc/gemm.cu",
-            "replaces": None,  # MSET2's W = Ginv K, which the JAX package leaves to XLA
+            "replaces": None,  # MSET2's W = Ginv K and X_hat = W^T D, which the JAX package
+            # leaves to XLA
             "launches": gemm_launches,
             **gemm_checks,
         },

@@ -1,12 +1,13 @@
 // out = x . y^T in float32 on Hopper's (sm_90a) tensor cores, as three TF32 products.
 //
-// Replaces no Pallas kernel: the JAX package leaves MSET2's W = Ginv K to XLA's dot, and so
-// did the port, to cuBLAS. The configurations hold float32 with TF32 off, so cuBLAS takes
-// that product on the CUDA cores' FMA units (~50 of their 67 TFLOP/s at 8192^3). This kernel
-// takes it on the tensor cores instead, at float32's accuracy, with K1's arithmetic
-// (similarity.cu): each operand split into TF32 hi + lo, x.y = xl.yh + xh.yl + xh.yh, each
-// 32-deep K tile summed from zero by the tensor cores' truncating adder and then promoted
-// into an IEEE float32 accumulator. tests/test_torch_gemm.py emulates this on the CPU.
+// Replaces no Pallas kernel: the JAX package leaves MSET2's W = Ginv K and X_hat = W^T D to
+// XLA's dot, and so did the port, to cuBLAS. The configurations hold float32 with TF32 off, so
+// cuBLAS takes those products on the CUDA cores' FMA units (~50 of their 67 TFLOP/s at
+// 8192^3). This kernel takes them on the tensor cores instead, at float32's accuracy, with
+// K1's arithmetic (similarity.cu): each operand split into TF32 hi + lo,
+// x.y = xl.yh + xh.yl + xh.yh, each 32-deep K tile summed from zero by the tensor cores'
+// truncating adder and then promoted into an IEEE float32 accumulator.
+// tests/test_torch_gemm.py emulates this on the CPU.
 //
 // What bounds it: 2 m n k operations against (m + n) k inputs and m n outputs, so at MSET2's
 // shapes (k = 8,192 memory vectors) the operations, three times over; the split passes
@@ -17,10 +18,11 @@
 //   and lo planes (2, rows, k_pad) of float32 scratch, one warp a row; k_pad is k rounded up
 //   to the 32-float K tile, zeros past k, so every TMA row stride is legal and the padding
 //   adds nothing to the product.
-// - gemm_split_t_kernel: a row-major (k, rows) operand (K from K1, whose rows are the
-//   contraction) into the same planes of its transpose, through a 32 x 32 tile in shared
-//   memory, so that both reads and writes are whole 128-byte lines. TF32 wgmma reads both
-//   operands K-major, so the transpose has to be made somewhere; here it costs one pass.
+// - gemm_split_t_kernel: a row-major (k, rows) operand (K from K1, W as this kernel wrote it,
+//   D: each one's rows are the contraction) into the same planes of its transpose, through a
+//   32 x 32 tile in shared memory, so that both reads and writes are whole 128-byte lines.
+//   TF32 wgmma reads both operands K-major, so the transpose has to be made somewhere; here
+//   it costs one pass.
 // - gemm_tf32x3_kernel: K1's main loop (kernels/csrc/tf32.cuh, shared with similarity.cu)
 //   with no epilogue but the stores. One block of 384 threads an SM computes one 128 x 128
 //   tile of out, tiles numbered in bands of 16 row blocks. Warpgroup 0 is the producer, one

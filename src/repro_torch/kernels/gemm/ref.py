@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the float32 matrix product (MSET2's W = Ginv K).
+"""Plain PyTorch version of the float32 matrix product (MSET2's W = Ginv K and X_hat = W^T D).
 
 The CPU path and the yardstick the CUDA kernel is held against on the card.
 """

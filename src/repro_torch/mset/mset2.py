@@ -9,7 +9,8 @@ Training (paper Fig. 4 cost driver):
 Surveillance (paper Fig. 5 cost driver), streamed over observations x:
     w     = Ginv · (D (x) x)
     x_hat = w^T · D
-residuals x - x_hat feed the SPRT detector (sprt.py).
+residuals x - x_hat feed the SPRT detector (sprt.py). On the card both products run on
+K4 (``kernels/gemm``), which reads Ginv and D^T as TF32 planes that the model keeps.
 
 Each step runs inside a telemetry span (``repro_torch._telemetry``): ``mset2.train``
 with ``.standardize``, ``.memory_vectors``, ``.bandwidth``, ``.similarity`` and
@@ -28,8 +29,8 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
-from repro_torch._telemetry import span
-from repro_torch.kernels.gemm import gemm, split_rows
+from repro_torch._telemetry import counter, span
+from repro_torch.kernels.gemm import gemm, split_cols, split_rows
 from repro_torch.kernels.similarity import similarity
 from repro_torch.mset.memory_vectors import build_memory_matrix
 
@@ -47,27 +48,38 @@ class MSETModel(nn.Module):
         self.register_buffer("std", std)  # (n,)
         self.gamma = float(gamma)
         self.kind = kind
-        self._ginv_split = None  # (Ginv, its version and address, its K4 planes); not state
+        self._planes = {}  # name -> (buffer, its version and address, its K4 planes); not state
 
     def forward(self, X):
         return estimate(self, X)
 
-    def ginv_split(self):
-        """Ginv's TF32 hi and lo planes, the form in which K4 reads it on the card (twice
-        Ginv's bytes), made once and again only when Ginv is replaced or edited in place
-        (another tensor, another ``_version``). Kept out of the state dict. None where
-        ``gemm`` takes the plain product (off the card) or a version is not tracked."""
-        g = self.Ginv
-        if not g.is_cuda or g.is_inference():
+    def _kept(self, name: str, t, split):
+        """``split(t)``, the TF32 hi and lo planes in which K4 reads buffer ``t`` on the card
+        (twice its bytes), made once and again only when ``t`` is replaced or edited in
+        place (another tensor, another ``_version``), each making counted by the session
+        counter ``mset2_plane_splits_total{plane=name}``. Kept out of the state dict. None
+        where ``gemm`` takes the plain product (off the card) or a version is not tracked."""
+        if not t.is_cuda or t.is_inference():
             return None
-        key = (g._version, g.data_ptr())
-        cached = self._ginv_split
-        if cached is None or cached[0]() is not g or cached[1] != key:
-            cached = self._ginv_split = (weakref.ref(g), key, split_rows(g))
+        key = (t._version, t.data_ptr())
+        cached = self._planes.get(name)
+        if cached is None or cached[0]() is not t or cached[1] != key:
+            self._planes.pop(name, None)
+            del cached  # the old planes go before the new are made
+            cached = self._planes[name] = (weakref.ref(t), key, split(t))
+            counter("mset2_plane_splits_total", plane=name)
         return cached[2]
 
+    def ginv_split(self):
+        """Ginv's planes (2, m, m_pad): K4's a in W = Ginv K."""
+        return self._kept("ginv", self.Ginv, split_rows)
+
+    def dt_split(self):
+        """D^T's planes (2, n, m_pad): K4's b in X_hat = W^T D."""
+        return self._kept("dt", self.D, split_cols)
+
     def __getstate__(self):
-        return dict(super().__getstate__(), _ginv_split=None)  # a weakref does not pickle
+        return dict(super().__getstate__(), _planes={})  # a weakref does not pickle
 
     @classmethod
     def from_numpy(cls, D, Ginv, mean, std, gamma: float, kind: str, device=None) -> "MSETModel":
@@ -162,7 +174,8 @@ def estimate(model: MSETModel, X, step: Callable[[str, Callable[[], Any]], Any] 
             # (m, b); on the card K4, with Ginv split once a model
             W = step("Ginv K", lambda: gemm(model.Ginv, K, a_split=model.ginv_split()))
         with span("mset2.estimate.wt_d"):
-            Xhat_s = step("W^T D", lambda: W.T @ model.D)  # (b, n)
+            # (b, n); on the card K4, with W^T split from W and D^T split once a model
+            Xhat_s = step("W^T D", lambda: gemm(W.T, model.D, b_split=model.dt_split()))
         with span("mset2.estimate.residuals"):
             Xhat = Xhat_s * model.std + model.mean
             return Xhat, X - Xhat

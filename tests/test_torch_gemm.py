@@ -1,4 +1,5 @@
-"""The port's float32 product K4 (MSET2's W = Ginv K) against float64 and plain float32.
+"""The port's float32 product K4 (MSET2's W = Ginv K and X_hat = W^T D) against float64
+and plain float32.
 
 The CUDA kernel runs only on a card: its tests carry the ``gpu`` marker and skip on
 machines without one. Its arithmetic (both operands split into TF32 hi + lo, three
@@ -11,7 +12,9 @@ tile after tile): PERF.md reports it beside the card's reading.
 
 import importlib
 import io
+import pickle
 import re
+import weakref
 
 import pytest
 
@@ -19,12 +22,13 @@ torch = pytest.importorskip("torch")
 
 import numpy as np
 
+from repro_torch import _telemetry
 from repro_torch.kernels import gemm, gemm_cuda, gemm_ref, similarity, similarity_ref
-from repro_torch.kernels.gemm import split_rows
-from repro_torch.mset import estimate, train
+from repro_torch.kernels.gemm import split_cols, split_rows
+from repro_torch.mset import MSETModel, estimate, train
 from repro_torch.tpss import TPSSParams, synthesize
 from torch_parity_data import WELL_POSED, telemetry
-from torch_tf32_cases import tf32, truncating_product
+from torch_tf32_cases import fma_chain, tf32, truncating_product
 
 # the wrapper module, which keeps the launch count (the package's `gemm` is the op)
 gemm_module = importlib.import_module("repro_torch.kernels.gemm.gemm")
@@ -40,13 +44,13 @@ def _rel_err(out, exact):
     return float(np.linalg.norm(out - exact) / np.linalg.norm(exact))
 
 
-def _mset2_operands(seed, n_signals, n_memvec, n_obs, reg, device="cpu"):
-    """A trained MSET2 model's Ginv and the similarity K of its next n_obs observations
-    against its memory matrix, as `estimate` forms them."""
+def _mset2_model(seed, n_signals, n_memvec, n_obs, reg, device="cpu"):
+    """A trained MSET2 model and the similarity K of its next n_obs observations against
+    its memory matrix, as `estimate` forms them."""
     X = synthesize(seed, TPSSParams(n_signals=n_signals, n_obs=2 * n_memvec + n_obs), device)
     model = train(X[: 2 * n_memvec], n_memvec=n_memvec, reg=reg)
     Xs = (X[2 * n_memvec :] - model.mean) / model.std
-    return model.Ginv, similarity(model.D, Xs, gamma=model.gamma, kind=model.kind)
+    return model, similarity(model.D, Xs, gamma=model.gamma, kind=model.kind)
 
 
 def _emulated_errors(a, b):
@@ -101,9 +105,48 @@ def test_estimate_on_cpu_keeps_the_plain_product():
 def test_a_model_off_the_card_keeps_no_split():
     seed, n_signals, n_obs, n_memvec = WELL_POSED[0]
     model = train(torch.from_numpy(telemetry(seed, n_obs, n_signals)), n_memvec=n_memvec)
-    assert model.ginv_split() is None and model._ginv_split is None
+    assert model.ginv_split() is None and model._planes == {}
     with pytest.raises(ValueError, match="CUDA"):
         split_rows(model.Ginv)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_a_model_off_the_card_keeps_no_dt_planes(device):
+    seed, n_signals, n_obs, n_memvec = WELL_POSED[0]
+    X = torch.from_numpy(telemetry(seed, n_obs, n_signals))
+    model = train(X[: n_obs // 2], n_memvec=n_memvec)
+    if device == "meta":
+        model = MSETModel(
+            *(getattr(model, k).to("meta") for k in ("D", "Ginv")),
+            model.gamma,
+            model.kind,
+            *(getattr(model, k).to("meta") for k in ("mean", "std")),
+        )
+    gemm_module.launches = 0
+    with _telemetry.session() as tel:
+        xhat, _ = estimate(model, X[n_obs // 2 :].to(device))
+    assert xhat.device.type == device and xhat.shape == (n_obs - n_obs // 2, n_signals)
+    assert model.dt_split() is None and model._planes == {}
+    assert gemm_module.launches == 0
+    assert not [name for name, _, _ in tel.metrics.items() if name == "mset2_plane_splits_total"]
+    with pytest.raises(ValueError, match="CUDA"):
+        split_cols(model.D)
+
+
+def test_planes_are_not_state():
+    # a model's planes (here a stand-in entry, as the card would keep) stay out of its
+    # state dict, a pickle, a deep copy and torch.save
+    seed, n_signals, n_obs, n_memvec = WELL_POSED[0]
+    model = train(torch.from_numpy(telemetry(seed, n_obs, n_signals)), n_memvec=n_memvec)
+    D = model.D
+    model._planes["dt"] = (weakref.ref(D), (D._version, D.data_ptr()), torch.zeros(2, 3, 32))
+    assert set(model.state_dict()) == {"D", "Ginv", "mean", "std"}
+    buf = io.BytesIO()
+    torch.save(model, buf)
+    buf.seek(0)
+    for copy in (pickle.loads(pickle.dumps(model)), torch.load(buf, weights_only=False)):
+        assert copy._planes == {} and torch.equal(copy.D, D)
+    assert "dt" in model._planes
 
 
 def test_cuda_impl_on_cpu_tensor_raises():
@@ -125,7 +168,7 @@ def test_unknown_impl_raises():
         (torch.zeros((4, 3)), torch.zeros((3, 5), dtype=torch.bfloat16), TypeError, "float32"),
         (torch.zeros((4, 3)), torch.zeros((4, 5)), ValueError, "expected"),
         (torch.zeros((4, 3)), torch.zeros(3), ValueError, "expected"),
-        (torch.zeros((3, 4)).T, torch.zeros((3, 5)), ValueError, "contiguous"),
+        (torch.zeros((4, 6))[:, ::2], torch.zeros((3, 5)), ValueError, "contiguous"),
         (torch.zeros((4, 3)), torch.zeros((5, 3)).T, ValueError, "contiguous"),
     ],
     ids=["f64", "bf16", "inner", "1-d", "a-view", "b-view"],
@@ -141,10 +184,29 @@ def test_kernel_rejects_what_it_does_not_take(a, b, err, match):
 @pytest.mark.parametrize("reg", [1e-2, 1e-6])
 def test_three_products_hold_float32_on_an_mset2_model(reg):
     # the benchmark's reg (1e-2) and the port's default (1e-6), whose Ginv is ~1e4 larger
-    Ginv, K = _mset2_operands(29, 64, 256, 300, reg)
+    model, K = _mset2_model(29, 64, 256, 300, reg)
+    Ginv = model.Ginv
     plain, three, one = _emulated_errors(Ginv.numpy(), K.numpy())
     assert three <= FACTOR * plain, (three, plain)
     assert one > FACTOR * plain, (one, plain)
+
+
+def test_three_products_hold_float32_on_an_mset2_reconstruction():
+    # X_hat = W^T D as estimate forms it: a few observations (b 64) over many signals
+    # (n 9,001, off the 128-column tile) through 2,048 memory vectors, at the cells' reg.
+    # The yardstick is the float32 product this one replaces on the card, cuBLAS's SIMT
+    # kernel (an FMA chain an output): the emulation's truncating adder is 2.3x the CPU's
+    # blocked float32 product here (PERF.md), and 0.4x the chain. So the emulation is held
+    # to both: 2x the chain, and 3x the blocked product (its measured 2.35x with a margin),
+    # which a drift in the adder's model or in the promotion depth would not meet.
+    model, K = _mset2_model(37, 9001, 2048, 64, 1e-2)
+    a, b = (model.Ginv @ K).T.contiguous().numpy(), model.D.numpy()
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    chain = _rel_err(fma_chain(a, b.T), exact)
+    plain, three, one = _emulated_errors(a, b)
+    assert three <= FACTOR * chain, (three, chain, plain)
+    assert three <= 3 * plain, (three, plain)
+    assert one > FACTOR * chain, (one, chain)
 
 
 @pytest.mark.parametrize("k", [4096, 4103])
@@ -158,10 +220,10 @@ def test_three_products_hold_float32_over_a_long_contraction(k):
 # ------------------------------------------------------------------- on the card
 
 
-def _card_errors(a, b):
+def _card_errors(a, b, **kw):
     """The kernel's and cuBLAS float32's errors against float64 on one card's inputs."""
     before = gemm_module.launches
-    out = gemm(a, b)
+    out = gemm(a, b, **kw)
     torch.cuda.synchronize()
     assert gemm_module.launches == before + 1
     exact = a.double() @ b.double()
@@ -176,8 +238,8 @@ def _card_errors(a, b):
 def test_kernel_on_fig8_shapes_with_a_trained_ginv(cuda):
     # Fig. 8's widest cell as the benchmark runs it: 8,192 memory vectors of 1,024 signals,
     # a batch of 8,192 observations, reg 1e-2
-    Ginv, K = _mset2_operands(31, 1024, 8192, 8192, 1e-2, device=cuda)
-    kernel, cublas = _card_errors(Ginv, K)
+    model, K = _mset2_model(31, 1024, 8192, 8192, 1e-2, device=cuda)
+    kernel, cublas = _card_errors(model.Ginv, K)
     assert kernel <= FACTOR * cublas, (kernel, cublas)
 
 
@@ -212,7 +274,7 @@ def test_estimate_on_the_card_takes_k4_and_matches_the_plain_product(cuda):
     model = train(X[:n_tr], n_memvec=n_memvec)
     before = gemm_module.launches
     xhat, res = estimate(model, X[n_tr:])
-    assert gemm_module.launches == before + 1
+    assert gemm_module.launches == before + 2  # W = Ginv K and X_hat = W^T D
     Xs = (X[n_tr:] - model.mean) / model.std
     K = similarity(model.D, Xs, gamma=model.gamma, kind=model.kind)
     want = ((model.Ginv @ K).T @ model.D) * model.std + model.mean
@@ -254,7 +316,7 @@ def test_ginv_split_is_made_once_and_again_when_ginv_changes(cuda):
     buf = io.BytesIO()
     torch.save(model, buf)
     buf.seek(0)
-    assert torch.load(buf, weights_only=False)._ginv_split is None
+    assert torch.load(buf, weights_only=False)._planes == {}
 
 
 @pytest.mark.gpu
@@ -284,6 +346,124 @@ def test_the_profiler_links_k4s_kernels_to_its_operator(cuda):
     )
     assert linked == [
         ("gemm_split_rows_kernel", "repro_torch::gemm_split_rows"),
+        ("gemm_split_t_kernel", "repro_torch::gemm_tf32x3"),
+        ("gemm_tf32x3_kernel", "repro_torch::gemm_tf32x3"),
+    ], linked
+
+
+# ------------------------------------------------- X_hat = W^T D on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n_signals,b", [(1024, 8192), (9001, 1024)], ids=["fig8", "a320-like-ragged-n"]
+)
+def test_wt_d_on_k4_with_a_trained_model(cuda, n_signals, b):
+    # estimate's second product at Fig. 8's shape (8,192 observations of 1,024 signals)
+    # and at an A320-like one (a batch of 1,024 over 9,001 signals, off the 128-column
+    # tile), both through 8,192 memory vectors at reg 1e-2: W^T's planes split from W,
+    # D^T's kept on the model, and no further from float64 than cuBLAS's float32
+    model, K = _mset2_model(31, n_signals, 8192, b, 1e-2, device=cuda)
+    W = gemm(model.Ginv, K, a_split=model.ginv_split())
+    kernel, cublas = _card_errors(W.T, model.D, b_split=model.dt_split())
+    assert kernel <= cublas, (kernel, cublas)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", RAGGED)
+@pytest.mark.parametrize("m", [1, 31, 1000, 1027])
+def test_wt_d_on_ragged_shapes(cuda, b, m):
+    # W (m, b) and D (m, 1001): the product of W's transpose, a view, by D; ragged
+    # observations, memory vectors (contractions of 1 to 1,027) and signals
+    rng = np.random.default_rng(b * 10_000 + m)
+    W = torch.from_numpy(rng.standard_normal((m, b)).astype(np.float32)).to(cuda)
+    D = torch.from_numpy(rng.standard_normal((m, 1001)).astype(np.float32)).to(cuda)
+    kernel, cublas = _card_errors(W.T, D)
+    assert kernel <= FACTOR * max(cublas, 4 * float(np.finfo(np.float32).eps)), (kernel, cublas)
+    # W^T split from W, or from a copy of W^T; D^T split here or given: the same bits
+    out = gemm(W.T, D)
+    assert torch.equal(out, gemm(W.T.contiguous(), D))
+    assert torch.equal(out, gemm(W.T, D, a_split=split_cols(W), b_split=split_cols(D)))
+    with pytest.raises(ValueError, match="b_split"):
+        gemm(W.T, D, b_split=split_cols(D[:, :1000].contiguous()))
+
+
+def _plane_splits(tel, plane):
+    c = tel.metrics.get("mset2_plane_splits_total", plane=plane)
+    return 0 if c is None else c.value
+
+
+@pytest.mark.gpu
+def test_dt_planes_are_made_once_a_model_and_again_when_d_changes(cuda):
+    seed, n_signals, n_obs, n_memvec = WELL_POSED[2]
+    X = torch.from_numpy(telemetry(seed, n_obs, n_signals)).to(cuda)
+    n_tr = n_obs * 3 // 4
+    model, other = (train(X[:n_tr], n_memvec=n_memvec) for _ in range(2))
+    with _telemetry.session() as tel:
+        xhat, xother = (estimate(m, X[n_tr:])[0] for m in (model, other))
+        planes = model.dt_split()
+        assert planes is model.dt_split() and planes.shape == (2, n_signals, 32)
+        for _ in range(3):  # more batches, two models in turn: a split a model
+            assert torch.equal(estimate(model, X[n_tr:])[0], xhat)
+            assert torch.equal(estimate(other, X[n_tr:])[0], xother)
+        assert (_plane_splits(tel, "dt"), _plane_splits(tel, "ginv")) == (2, 2)
+        # replaced: another tensor of the same values, another split of the same bits
+        model.D = model.D.clone()
+        assert torch.equal(estimate(model, X[n_tr:])[0], xhat)
+        assert model.dt_split() is not planes and torch.equal(model.dt_split(), planes)
+        assert _plane_splits(tel, "dt") == 3
+        # edited in place: W^T 0 = 0, so x_hat is the mean
+        model.D.zero_()
+        xhat0, _ = estimate(model, X[n_tr:])
+        assert torch.equal(xhat0, model.mean.expand_as(xhat0))
+        assert (_plane_splits(tel, "dt"), _plane_splits(tel, "ginv")) == (4, 2)
+    assert set(model.state_dict()) == {"D", "Ginv", "mean", "std"}
+    assert set(model._planes) == {"dt", "ginv"}
+    assert pickle.loads(pickle.dumps(model))._planes == {}
+
+
+def _call(ev, name):
+    v = getattr(ev, name)
+    return v() if callable(v) else v
+
+
+@pytest.mark.gpu
+def test_the_profiler_links_wt_ds_kernels_to_operators_inside_its_span(cuda):
+    # wt_d_ms reads the device time of the kernels whose operators start inside the span
+    from torch.profiler import ProfilerActivity, profile
+
+    seed, n_signals, n_obs, n_memvec = WELL_POSED[2]
+    X = torch.from_numpy(telemetry(seed, n_obs, n_signals)).to(cuda)
+    n_tr = n_obs * 3 // 4
+    model = train(X[:n_tr], n_memvec=n_memvec)  # fresh: its first estimate splits D
+    gemm(*(torch.ones(4, 4, device=cuda),) * 2)  # built and loaded before the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        estimate(model, X[n_tr:])
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events if _call(e, "device_type") == torch.autograd.DeviceType.CPU]
+    (span,) = [
+        (_call(e, "start_ns"), _call(e, "start_ns") + _call(e, "duration_ns"))
+        for e in cpu
+        if _call(e, "name") == "mset2.estimate.wt_d"
+    ]
+    ops = {
+        _call(e, "correlation_id"): (_call(e, "name"), _call(e, "start_ns"))
+        for e in cpu
+        if _call(e, "name").startswith("repro_torch::")
+    }
+    kernel = re.compile(r"gemm_\w+_kernel")
+    linked = sorted(
+        (kernel.search(_call(e, "name")).group(), op[0])
+        for e in events
+        if _call(e, "device_type") != torch.autograd.DeviceType.CPU
+        and kernel.search(_call(e, "name"))
+        and (op := ops.get(_call(e, "linked_correlation_id")))
+        and span[0] <= op[1] <= span[1]
+    )
+    assert linked == [
+        ("gemm_split_t_kernel", "repro_torch::gemm_split_cols"),
         ("gemm_split_t_kernel", "repro_torch::gemm_tf32x3"),
         ("gemm_tf32x3_kernel", "repro_torch::gemm_tf32x3"),
     ], linked

@@ -1,5 +1,6 @@
 """The port's 3xTF32 arithmetic emulated with numpy: K1's (similarity.cu) and K4's
-(gemm.cu) products, which share it, are held to float32 with these on the CPU."""
+(gemm.cu) products, which share it, are held to float32 with these on the CPU; and the
+float32 product that cuBLAS's SIMT kernel computes, for a yardstick."""
 
 import numpy as np
 
@@ -38,3 +39,14 @@ def truncating_product(x, y, depth=8, tile=None):
             away = np.abs(part.astype(np.float64)) > np.abs(exact)
             part[away] = np.nextafter(part[away], np.float32(0))
     return total + part
+
+
+def fma_chain(x, y):
+    """x . y^T in float32 as one fused multiply-add chain an output along the contraction,
+    each step rounded to nearest once: the arithmetic of cuBLAS's SIMT sgemm, whose threads
+    each accumulate their outputs in registers over the whole of k."""
+    x64, y64 = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    acc = np.zeros((x.shape[0], y.shape[0]), np.float32)
+    for k in range(x.shape[1]):
+        acc = (acc + np.multiply.outer(x64[:, k], y64[:, k])).astype(np.float32)
+    return acc
